@@ -22,7 +22,12 @@ import torch
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "build")
-SOURCES = {"tsdf_apply": "tsdf_apply.cu"}
+SOURCES = {
+    "tsdf_prepare": "tsdf_prepare.cu",  # image pass: one float4 sample per pixel
+    "tsdf_cull": "tsdf_cull.cu",        # frustum cull into a device-side row list
+    "tsdf_apply": "tsdf_apply.cu",      # the integrate / de-integrate sweep
+}
+MAX_OPS = 64  # ops per call: one bit each in a row's op mask
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -93,49 +98,146 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "tsdf_apply":
+    if name == "tsdf_prepare":
+        lib.bf_tsdf_prepare.restype = I
+        lib.bf_tsdf_prepare.argtypes = [P] * 4 + [I] * 2 + [P]
+    elif name == "tsdf_cull":
+        lib.bf_tsdf_cull.restype = I
+        lib.bf_tsdf_cull.argtypes = [P] * 8 + [I] * 5 + [F] * 8 + [P]
+    elif name == "tsdf_apply":
         lib.bf_tsdf_apply.restype = I
-        lib.bf_tsdf_apply.argtypes = [P] * 8 + [I] * 5 + [F] * 12 + [P]
+        lib.bf_tsdf_apply.argtypes = [P] * 11 + [I] * 5 + [F] * 12 + [P]
+        lib.bf_tsdf_apply_wave.restype = I
+        lib.bf_tsdf_apply_wave.argtypes = []
 
 
-def _check_cuda(t: torch.Tensor, dtype, what: str) -> None:
+def _check_cuda(t: torch.Tensor, dtype, what: str, shape=None) -> None:
     if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor, got "
                          f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: need shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def tsdf_apply_launch(table, rows, depth_q, color_q_planar, meta, intr, params) -> None:
-    """Launch ``tsdf_apply.cu`` over payload ``rows`` of ``table`` (in place).
+def _host_op_arrays(signs, imgs, n_imgs: int):
+    """Per-op signs and image indices as C arrays: they travel to the card
+    inside the kernel's arguments, so no copy is enqueued for them."""
+    n = len(signs)
+    if len(imgs) != n or not 0 < n <= MAX_OPS:
+        raise ValueError(f"need 1..{MAX_OPS} ops with one image index each, got "
+                         f"{n} signs and {len(imgs)} image indices")
+    if any(not 0 <= int(i) < n_imgs for i in imgs):
+        raise ValueError(f"img_of_op {list(imgs)} out of range for {n_imgs} images")
+    return (ctypes.c_float * n)(*map(float, signs)), (ctypes.c_int * n)(*map(int, imgs))
 
-    ``depth_q`` [IMGS, H, W] and ``color_q_planar`` [IMGS, 3, H, W] are the
-    quantised images, ``meta`` [OPS, 16] holds per op the world-to-camera
-    rotation (row-major, 9), translation (3), sign and image index.
-    """
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def tsdf_prepare_launch(depths, colors):
+    """Launch ``tsdf_prepare.cu``: ``depths`` [IMGS, H, W] and ``colors``
+    [IMGS, H, W, 3] -> the quantised samples ``packed`` [IMGS, H, W, 4]
+    (``d_q, r_q, g_q, b_q`` per pixel) and each image's largest sampled
+    depth ``img_dmax`` [IMGS]."""
+    lib = load("tsdf_prepare")
+    _check_cuda(depths, torch.float32, "depths")
+    imgs, H, W = depths.shape
+    _check_cuda(colors, torch.float32, "colors", (imgs, H, W, 3))
+    packed = torch.empty((imgs, H, W, 4), dtype=torch.float32, device=depths.device)
+    img_dmax = torch.empty((imgs,), dtype=torch.float32, device=depths.device)
+    if packed.data_ptr() % 16:
+        raise ValueError("tsdf_prepare: the sample buffer is not 16-byte aligned")
+    _raise_on(lib.bf_tsdf_prepare(
+        depths.data_ptr(), colors.data_ptr(), packed.data_ptr(), img_dmax.data_ptr(),
+        int(imgs), int(H * W), _stream(depths)), "tsdf_prepare")
+    launch_counts["tsdf_prepare"] += 1
+    return packed, img_dmax
+
+
+def tsdf_cull_launch(table, w2c, signs, imgs, img_dmax, intr, params, H, W):
+    """Launch ``tsdf_cull.cu`` over every payload row of ``table``.
+
+    ``w2c`` [OPS, 3, 4] world-to-camera rows per op; ``signs`` / ``imgs`` host
+    sequences; ``img_dmax`` [IMGS] from the image pass. Returns ``rows``
+    int32 [N] and ``masks`` int64 [N], of which the first ``n_rows`` (an
+    int32 tensor [1], on the card) entries are the listed rows, in no
+    fixed order, and the bit masks of the ops that can touch each."""
+    lib = load("tsdf_cull")
+    ops = len(signs)
+    n = table.num_blocks
+    _check_cuda(table.slot_keys, torch.int32, "slot_keys")
+    _check_cuda(w2c, torch.float32, "w2c", (ops, 3, 4))
+    _check_cuda(img_dmax, torch.float32, "img_dmax")
+    c_signs, c_imgs = _host_op_arrays(signs, imgs, img_dmax.shape[0])
+    dev = table.slot_keys.device
+    rows = torch.empty((n,), dtype=torch.int32, device=dev)
+    masks = torch.empty((n,), dtype=torch.int64, device=dev)
+    n_rows = torch.empty((1,), dtype=torch.int32, device=dev)
+    _raise_on(lib.bf_tsdf_cull(
+        table.slot_keys.data_ptr(), w2c.data_ptr(), img_dmax.data_ptr(),
+        rows.data_ptr(), masks.data_ptr(), n_rows.data_ptr(), c_signs, c_imgs,
+        int(n), int(ops), int(img_dmax.shape[0]), int(H), int(W),
+        intr.fx, intr.fy, intr.cx, intr.cy, 8 * params.voxel_size,
+        params.truncation, params.truncation_scale,
+        min(params.depth_max, params.max_integration_distance),
+        _stream(rows)), "tsdf_cull")
+    launch_counts["tsdf_cull"] += 1
+    return rows, masks, n_rows
+
+
+def tsdf_apply_launch(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr, params,
+                      grid_ctas: int = 0) -> None:
+    """Launch ``tsdf_apply.cu`` over the first ``n_rows`` (read on the
+    card) payload rows listed in ``rows`` of ``table`` (in place), applying
+    to each row the ops whose bit its mask holds, in array order.
+
+    ``packed`` [IMGS, H, W, 4] are the image pass's samples, ``w2c``
+    [OPS, 3, 4] the world-to-camera rows, ``signs`` / ``imgs`` host
+    sequences. ``grid_ctas`` sets the size of the persistent grid; 0 takes
+    as many CTAs as the card holds at once."""
     lib = load("tsdf_apply")
+    ops = len(signs)
     for t, dt, what in (
         (table.sdf, torch.float32, "sdf"), (table.weight, torch.float32, "weight"),
         (table.color, torch.float32, "color"), (rows, torch.int32, "rows"),
-        (table.slot_keys, torch.int32, "slot_keys"), (depth_q, torch.float32, "depth_q"),
-        (color_q_planar, torch.float32, "color_q"), (meta, torch.float32, "meta"),
+        (masks, torch.int64, "masks"), (n_rows, torch.int32, "n_rows"),
+        (table.slot_keys, torch.int32, "slot_keys"), (packed, torch.float32, "packed"),
     ):
         _check_cuda(t, dt, what)
-    imgs, H, W = depth_q.shape
-    if tuple(color_q_planar.shape) != (imgs, 3, H, W) or meta.shape[1] != 16:
-        raise ValueError("tsdf_apply: image or meta shape mismatch")
+    _check_cuda(w2c, torch.float32, "w2c", (ops, 3, 4))
+    if packed.dim() != 4 or packed.shape[3] != 4 or packed.data_ptr() % 16:
+        raise ValueError("tsdf_apply: samples must be [IMGS, H, W, 4], 16-byte aligned")
     if table.sdf.shape[1] != 512 or table.color.shape[1] != 1536:
         raise ValueError("tsdf_apply: payload rows must be 512 / 1536 wide")
-    stream = torch.cuda.current_stream(table.sdf.device).cuda_stream
-    err = lib.bf_tsdf_apply(
+    if masks.shape[0] < rows.shape[0] or n_rows.numel() != 1:
+        raise ValueError("tsdf_apply: one mask per listed row and one row count")
+    n_imgs, H, W, _ = packed.shape
+    c_signs, c_imgs = _host_op_arrays(signs, imgs, n_imgs)
+    _raise_on(lib.bf_tsdf_apply(
         table.sdf.data_ptr(), table.weight.data_ptr(), table.color.data_ptr(),
-        rows.data_ptr(), table.slot_keys.data_ptr(), depth_q.data_ptr(),
-        color_q_planar.data_ptr(), meta.data_ptr(),
-        int(rows.shape[0]), int(meta.shape[0]), int(imgs), int(H), int(W),
+        rows.data_ptr(), masks.data_ptr(), n_rows.data_ptr(),
+        table.slot_keys.data_ptr(), packed.data_ptr(), w2c.data_ptr(), c_signs, c_imgs,
+        int(ops), int(n_imgs), int(H), int(W), int(grid_ctas),
         intr.fx, intr.fy, intr.cx, intr.cy, params.voxel_size,
         8 * params.voxel_size, params.truncation, params.truncation_scale,
         params.depth_min, min(params.depth_max, params.max_integration_distance),
         params.integration_weight_sample, params.integration_weight_max,
-        stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"tsdf_apply kernel launch failed: CUDA error {err}")
+        _stream(rows)), "tsdf_apply")
     launch_counts["tsdf_apply"] += 1
+
+
+def tsdf_apply_wave() -> int:
+    """CTAs of the sweep kernel that the current card holds at once: the
+    default size of its persistent grid."""
+    return int(load("tsdf_apply").bf_tsdf_apply_wave())
+
+
+# the culled path's three launchers, at the interfaces of
+# ``tsdf.apply_ops.PLAIN_STAGES``
+CUDA_STAGES = (tsdf_prepare_launch, tsdf_cull_launch, tsdf_apply_launch)

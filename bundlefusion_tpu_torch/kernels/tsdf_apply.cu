@@ -1,29 +1,46 @@
-// Fused multi-op TSDF integrate / de-integrate, in place, for Hopper (sm_90a).
+// Fused multi-op TSDF integrate / de-integrate sweep, in place, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas kernel `_apply_kernel` of
 // bundlefusion_tpu/tsdf/apply_pallas.py:104-551 (launched by
-// `apply_tsdf_ops`, :644-787). It computes what the plain version
-// `apply_tsdf_ops_ref` (bundlefusion_tpu_torch/tsdf/apply_ops.py) computes,
-// bit for bit, over a list of payload rows chosen by the per-block
-// frustum cull `active_block_rows`.
+// `apply_tsdf_ops`, :644-787, `pl.pallas_call` at :742). It computes what
+// the plain version `apply_tsdf_ops_ref`
+// (bundlefusion_tpu_torch/tsdf/apply_ops.py) computes, bit for bit, over
+// the payload rows that the cull kernel (tsdf_cull.cu) listed on the card.
 //
-// Design. One CTA per listed row, 512 threads, one thread per voxel of the
-// 8^3 block. Each thread reads its voxel's sdf, weight and three colour
-// channels once (coalesced: neighbouring threads read neighbouring words),
-// applies all OPS ops in array order in registers, and writes once. The
-// per-op world-to-camera matrix, sign and image index (16 floats an op) are
-// staged from a small argument buffer into shared memory. Images arrive
-// pre-quantised as float32 (depth = bf16 hi + bf16 lo, colour = bf16,
-// colour planar [IMGS, 3, H, W]) and are read with plain gathers. Nothing
-// else of the TPU design carries over: no one-hot MXU sampling windows, no
-// DMA double-buffering, no 128-lane geometry rows.
+// What bounds it. Bytes: each listed row moves 10 KB in (sdf 2 KB + weight
+// 2 KB + colour 6 KB) and 10 KB out, ~6 ns a row at 3.35 TB/s, plus each op
+// image once (16 bytes a pixel). A 1-op batch runs near that bound. A batch
+// of many ops does not: the op loop is ~150 machine instructions per voxel and
+// op (18 for the projection, ~10 for each of three IEEE divisions, the rest
+// gates, the gather's address and the update), so at ~9 ops a row the card's
+// instruction rate, not its memory, sets the time.
 //
-// What bounds it. Each listed row moves 10 KB in (sdf 2 KB + weight 2 KB +
-// colour 6 KB) and 10 KB out; the arithmetic is ~40 flops per voxel and op.
-// At 3.35 TB/s that is ~6 ns a row, so the kernel is memory-bound and its
-// floor is (rows x 20 KB) / bandwidth; the cull keeps `rows` to the blocks
-// the ops can touch. The image gathers (4 words per voxel and op) mostly
-// hit L1/L2: an image is 0.3-1.2 MB.
+// Design, and what each part is for.
+// - Persistent grid. The launch has a fixed number of CTAs (as many as the
+//   card holds at once, from the occupancy query) that stride over the row
+//   list up to a count read from device memory. The host therefore needs
+//   neither the list nor its length: the launch is enqueued right behind the
+//   cull, and nothing waits.
+// - Per-row op masks. The cull gives each row the bit mask of the ops whose
+//   frustum can touch it; the op loop walks only those bits, ascending, so
+//   array order is kept. Skipping an op the cull excluded is bitwise the
+//   same as running it: its update gate is false for every voxel of the
+//   block, and a false gate leaves the voxel unchanged.
+// - One CTA iteration per row, 512 threads, one thread per voxel of the 8^3
+//   block: sdf, weight and three colour channels are read once (coalesced),
+//   the row's ops are applied in registers, and each is written once. The
+//   next row's index and mask are fetched an iteration ahead and the row's
+//   key beside its payload, so a row costs one round trip to device memory.
+// - One 16-byte gather per voxel and op: the image pass (tsdf_prepare.cu)
+//   packed each pixel as (d_q, r_q, g_q, b_q), so depth and colour arrive in
+//   one load from L1 / L2 (an image is 1.2 MB).
+// - Fewer instructions per op: the mask is walked in 32-bit halves, the pixel
+//   index is 32-bit, and the voxel's offset inside the block is hoisted.
+// - Per-op world-to-camera rows are staged in shared memory once per CTA;
+//   signs and image indices come in the kernel's arguments.
+// Nothing else of the TPU design carries over: no one-hot MXU sampling
+// windows, no DMA double-buffering, no 128-lane geometry rows.
 //
 // Exactness. Built with --fmad=false and without fast math, and written
 // with __fmul_rn/__fadd_rn/__fdiv_rn, so no multiply-add is contracted (a
@@ -31,7 +48,7 @@
 // coordinates round half-to-even (rintf, as torch.round and jnp.round do),
 // in the order (px / max(z, 1e-6)) * fx + cx. A voxel whose update gate is
 // false is left bitwise unchanged, which is what the plain version computes
-// for it; sign-0 ops are skipped.
+// for it; sign-0 ops are skipped; dead rows are skipped.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,9 +59,18 @@
 #define GRID_DIM (1 << GRID_BITS)
 #define GRID_HALF (GRID_DIM / 2)
 #define EMPTY_KEY 0x7fffffff
+// CTAs per SM the register budget is held to. 3 gives 40 registers and no
+// spills; 4 (32 registers) spills 16 bytes and measured no faster on an H100.
+#define APPLY_MIN_CTAS 3
+
+// ((m0 * x + m1 * y) + m2 * z) + m3, every product and sum rounded: one row
+// of a world-to-camera transform, in the plain version's order
+__device__ __forceinline__ float affine_row(const float* m, float x, float y, float z) {
+    const float xy = __fadd_rn(__fmul_rn(m[0], x), __fmul_rn(m[1], y));
+    return __fadd_rn(__fadd_rn(xy, __fmul_rn(m[2], z)), m[3]);
+}
 
 struct ApplyParams {
-    int n_rows;
     int ops;
     int imgs;
     int H;
@@ -58,106 +84,157 @@ struct ApplyParams {
     float depth_max;     // min(depth_max, max_integration_distance)
     float w_sample;
     float w_max;
+    float sign[MAX_OPS];
+    int img[MAX_OPS];
 };
 
-__global__ void __launch_bounds__(BLOCK_VOL)
+__global__ void __launch_bounds__(BLOCK_VOL, APPLY_MIN_CTAS)
 tsdf_apply_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                   float* __restrict__ color, const int* __restrict__ rows,
-                  const int* __restrict__ slot_keys,
-                  const float* __restrict__ depth_q,
-                  const float* __restrict__ color_q,
-                  const float* __restrict__ meta, ApplyParams p) {
-    __shared__ float s_meta[MAX_OPS * 16];
-    for (int i = threadIdx.x; i < p.ops * 16; i += blockDim.x) s_meta[i] = meta[i];
+                  const unsigned long long* __restrict__ masks,
+                  const int* __restrict__ n_rows, const int* __restrict__ slot_keys,
+                  const float4* __restrict__ packed, const float* __restrict__ w2c,
+                  ApplyParams p) {
+    __shared__ float s_m[MAX_OPS * 12];  // per op the 3x4 world-to-camera rows
+    for (int i = threadIdx.x; i < p.ops * 12; i += blockDim.x) s_m[i] = w2c[i];
     __syncthreads();
-    if ((int)blockIdx.x >= p.n_rows) return;
-
-    const int row = rows[blockIdx.x];
-    const int key = slot_keys[row];
-    if (key == EMPTY_KEY) return;  // dead row: the update gate is false everywhere
 
     const int t = threadIdx.x;
-    const float kx = (float)((key & (GRID_DIM - 1)) - GRID_HALF);
-    const float ky = (float)(((key >> GRID_BITS) & (GRID_DIM - 1)) - GRID_HALF);
-    const float kz = (float)(((key >> (2 * GRID_BITS)) & (GRID_DIM - 1)) - GRID_HALF);
-    const float lx = (float)(t % 8);
-    const float ly = (float)((t / 8) % 8);
-    const float lz = (float)(t / 64);
-    const float wx = __fadd_rn(__fmul_rn(kx, p.block_extent),
-                               __fmul_rn(__fadd_rn(lx, 0.5f), p.voxel_size));
-    const float wy = __fadd_rn(__fmul_rn(ky, p.block_extent),
-                               __fmul_rn(__fadd_rn(ly, 0.5f), p.voxel_size));
-    const float wz = __fadd_rn(__fmul_rn(kz, p.block_extent),
-                               __fmul_rn(__fadd_rn(lz, 0.5f), p.voxel_size));
+    const float ox = __fmul_rn(__fadd_rn((float)(t % 8), 0.5f), p.voxel_size);
+    const float oy = __fmul_rn(__fadd_rn((float)((t / 8) % 8), 0.5f), p.voxel_size);
+    const float oz = __fmul_rn(__fadd_rn((float)(t / 64), 0.5f), p.voxel_size);
+    const int plane = p.H * p.W;
+    const float wf = (float)p.W, hf = (float)p.H;
+    const int n = *n_rows;  // written by the cull, an earlier launch on this stream
 
-    const size_t base = (size_t)row * BLOCK_VOL + t;
-    const size_t cbase = (size_t)row * (3 * BLOCK_VOL) + t;
-    float s = sdf[base];
-    float w = weight[base];
-    float cr = color[cbase];
-    float cg = color[cbase + BLOCK_VOL];
-    float cb = color[cbase + 2 * BLOCK_VOL];
-    const size_t plane = (size_t)p.H * p.W;
-
-    for (int o = 0; o < p.ops; ++o) {
-        const float* m = s_meta + o * 16;
-        const float sign = m[12];
-        if (sign == 0.0f) continue;
-        const int img = (int)m[13];
-        // the wrapper rejects such ops; this keeps a bad argument from
-        // reading outside the images
-        if (img < 0 || img >= p.imgs) continue;
-        const float px = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], wx), __fmul_rn(m[1], wy)),
-                                             __fmul_rn(m[2], wz)), m[9]);
-        const float py = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[3], wx), __fmul_rn(m[4], wy)),
-                                             __fmul_rn(m[5], wz)), m[10]);
-        const float z = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[6], wx), __fmul_rn(m[7], wy)),
-                                            __fmul_rn(m[8], wz)), m[11]);
-        const float zs = fmaxf(z, 1e-6f);
-        const float uf = rintf(__fadd_rn(__fmul_rn(__fdiv_rn(px, zs), p.fx), p.cx));
-        const float vf = rintf(__fadd_rn(__fmul_rn(__fdiv_rn(py, zs), p.fy), p.cy));
-        const bool inb = (uf >= 0.0f) && (uf < (float)p.W) && (vf >= 0.0f) &&
-                         (vf < (float)p.H) && (z > 0.0f);
-        if (!inb) continue;
-        const size_t pix = (size_t)img * plane + (size_t)vf * p.W + (size_t)uf;
-        const float d = depth_q[pix];
-        if (!(d >= p.depth_min && d <= p.depth_max)) continue;
-        const float sd = __fsub_rn(d, z);
-        const float trunc = __fadd_rn(__fmul_rn(d, p.truncation_scale), p.truncation);
-        if (!(sd > -trunc)) continue;
-        // the update gate is true from here on
-        const float sd_cl = fminf(sd, trunc);
-        const float w_new = __fmul_rn(p.w_sample, sign);
-        const float new_w = fminf(fmaxf(__fadd_rn(w, w_new), 0.0f), p.w_max);
-        const float applied = __fsub_rn(new_w, w);
-        if (applied != 0.0f) {
-            const float sum_sdf = __fadd_rn(__fmul_rn(s, w), __fmul_rn(sd_cl, applied));
-            s = (new_w > 0.0f) ? __fdiv_rn(sum_sdf, fmaxf(new_w, 1e-12f)) : 0.0f;
-        }
-        const size_t cpix = (size_t)img * 3 * plane + (size_t)vf * p.W + (size_t)uf;
-        cr = fmaxf(__fadd_rn(cr, __fmul_rn(color_q[cpix], applied)), 0.0f);
-        cg = fmaxf(__fadd_rn(cg, __fmul_rn(color_q[cpix + plane], applied)), 0.0f);
-        cb = fmaxf(__fadd_rn(cb, __fmul_rn(color_q[cpix + 2 * plane], applied)), 0.0f);
-        w = new_w;
+    // the next row's index and mask are fetched one iteration ahead, and the
+    // key travels with the payload loads, so a row waits for one round trip
+    // to device memory, not three in a chain
+    int i = blockIdx.x;
+    int row = 0;
+    unsigned long long todo = 0ull;
+    if (i < n) {
+        row = rows[i];
+        todo = masks[i];
     }
-    sdf[base] = s;
-    weight[base] = w;
-    color[cbase] = cr;
-    color[cbase + BLOCK_VOL] = cg;
-    color[cbase + 2 * BLOCK_VOL] = cb;
+    for (; i < n; i += gridDim.x) {
+        const int i_next = i + gridDim.x;
+        int row_next = 0;
+        unsigned long long todo_next = 0ull;
+        if (i_next < n) {
+            row_next = rows[i_next];
+            todo_next = masks[i_next];
+        }
+        const size_t base = (size_t)row * BLOCK_VOL + t;
+        const size_t cbase = (size_t)row * (3 * BLOCK_VOL) + t;
+        const int key = slot_keys[row];
+        float s = sdf[base];
+        float w = weight[base];
+        float cr = color[cbase];
+        float cg = color[cbase + BLOCK_VOL];
+        float cb = color[cbase + 2 * BLOCK_VOL];
+        row = row_next;
+        if (key == EMPTY_KEY) {  // dead row: the update gate is false everywhere
+            todo = todo_next;
+            continue;
+        }
+
+        const float wx = __fadd_rn(
+            __fmul_rn((float)((key & (GRID_DIM - 1)) - GRID_HALF), p.block_extent), ox);
+        const float wy = __fadd_rn(
+            __fmul_rn((float)(((key >> GRID_BITS) & (GRID_DIM - 1)) - GRID_HALF), p.block_extent),
+            oy);
+        const float wz = __fadd_rn(
+            __fmul_rn((float)(((key >> (2 * GRID_BITS)) & (GRID_DIM - 1)) - GRID_HALF),
+                      p.block_extent),
+            oz);
+
+        // the mask is walked as two 32-bit halves: a 64-bit find-first-set is
+        // a dozen instructions on this card, a 32-bit one is one
+        for (int half = 0; half < 2; ++half) {
+            unsigned int bits = half == 0 ? (unsigned int)todo : (unsigned int)(todo >> 32);
+            while (bits != 0u) {
+                const int o = half * 32 + __ffs((int)bits) - 1;
+                bits &= bits - 1u;
+                if (o >= p.ops) break;
+                const float sign = p.sign[o];
+                if (sign == 0.0f) continue;
+                const int img = p.img[o];
+                // the wrapper rejects such ops; this keeps a bad argument from
+                // reading outside the images
+                if (img < 0 || img >= p.imgs) continue;
+                const float* m = s_m + o * 12;
+                const float px = affine_row(m, wx, wy, wz);
+                const float py = affine_row(m + 4, wx, wy, wz);
+                const float z = affine_row(m + 8, wx, wy, wz);
+                const float zs = fmaxf(z, 1e-6f);
+                const float uf = rintf(__fadd_rn(__fmul_rn(__fdiv_rn(px, zs), p.fx), p.cx));
+                const float vf = rintf(__fadd_rn(__fmul_rn(__fdiv_rn(py, zs), p.fy), p.cy));
+                const bool inb =
+                    (uf >= 0.0f) && (uf < wf) && (vf >= 0.0f) && (vf < hf) && (z > 0.0f);
+                if (!inb) continue;
+                // 32-bit pixel index: the launcher holds imgs * H * W below 2^31
+                const float4 smp = __ldg(packed + (img * plane + (int)vf * p.W + (int)uf));
+                const float d = smp.x;
+                if (!(d >= p.depth_min && d <= p.depth_max)) continue;
+                const float sd = __fsub_rn(d, z);
+                const float trunc = __fadd_rn(__fmul_rn(d, p.truncation_scale), p.truncation);
+                if (!(sd > -trunc)) continue;
+                // the update gate is true from here on
+                const float sd_cl = fminf(sd, trunc);
+                const float w_new = __fmul_rn(p.w_sample, sign);
+                const float new_w = fminf(fmaxf(__fadd_rn(w, w_new), 0.0f), p.w_max);
+                const float applied = __fsub_rn(new_w, w);
+                if (applied != 0.0f) {
+                    const float sum_sdf = __fadd_rn(__fmul_rn(s, w), __fmul_rn(sd_cl, applied));
+                    s = (new_w > 0.0f) ? __fdiv_rn(sum_sdf, fmaxf(new_w, 1e-12f)) : 0.0f;
+                }
+                cr = fmaxf(__fadd_rn(cr, __fmul_rn(smp.y, applied)), 0.0f);
+                cg = fmaxf(__fadd_rn(cg, __fmul_rn(smp.z, applied)), 0.0f);
+                cb = fmaxf(__fadd_rn(cb, __fmul_rn(smp.w, applied)), 0.0f);
+                w = new_w;
+            }
+        }
+        sdf[base] = s;
+        weight[base] = w;
+        color[cbase] = cr;
+        color[cbase + BLOCK_VOL] = cg;
+        color[cbase + 2 * BLOCK_VOL] = cb;
+        todo = todo_next;
+    }
+}
+
+// CTAs of the sweep that the current card holds at once (0 on failure).
+extern "C" int bf_tsdf_apply_wave() {
+    static int wave[64] = {0};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+    if (wave[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tsdf_apply_kernel,
+                                                                BLOCK_VOL, 0);
+        if (err != cudaSuccess) return 0;
+        wave[dev] = sms * per_sm;
+    }
+    return wave[dev];
 }
 
 extern "C" int bf_tsdf_apply(float* sdf, float* weight, float* color, const int* rows,
-                             const int* slot_keys, const float* depth_q,
-                             const float* color_q, const float* meta, int n_rows,
-                             int ops, int imgs, int H, int W, float fx, float fy,
-                             float cx, float cy, float voxel_size, float block_extent,
-                             float truncation, float truncation_scale, float depth_min,
-                             float depth_max, float w_sample, float w_max,
-                             void* stream) {
-    if (ops > MAX_OPS || ops < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+                             const long long* masks, const int* n_rows, const int* slot_keys,
+                             const float* packed, const float* w2c, const float* signs_host,
+                             const int* imgs_host, int ops, int imgs, int H, int W,
+                             int grid_ctas, float fx, float fy, float cx, float cy,
+                             float voxel_size, float block_extent, float truncation,
+                             float truncation_scale, float depth_min, float depth_max,
+                             float w_sample, float w_max, void* stream) {
+    if (ops > MAX_OPS || ops <= 0 || imgs <= 0 || H <= 0 || W <= 0 ||
+        (long long)imgs * H * W >= (1ll << 31))
+        return (int)cudaErrorInvalidValue;
+    if (grid_ctas <= 0) grid_ctas = bf_tsdf_apply_wave();
+    if (grid_ctas <= 0) return (int)cudaErrorInvalidConfiguration;
     ApplyParams p;
-    p.n_rows = n_rows;
     p.ops = ops;
     p.imgs = imgs;
     p.H = H;
@@ -174,10 +251,12 @@ extern "C" int bf_tsdf_apply(float* sdf, float* weight, float* color, const int*
     p.depth_max = depth_max;
     p.w_sample = w_sample;
     p.w_max = w_max;
-    // always launch (an empty row list still launches one idle CTA), so one
-    // call of the wrapper is one launch
-    const unsigned grid = n_rows > 0 ? (unsigned)n_rows : 1u;
-    tsdf_apply_kernel<<<grid, BLOCK_VOL, 0, (cudaStream_t)stream>>>(
-        sdf, weight, color, rows, slot_keys, depth_q, color_q, meta, p);
+    for (int o = 0; o < MAX_OPS; ++o) {
+        p.sign[o] = o < ops ? signs_host[o] : 0.0f;
+        p.img[o] = o < ops ? imgs_host[o] : 0;
+    }
+    tsdf_apply_kernel<<<(unsigned)grid_ctas, BLOCK_VOL, 0, (cudaStream_t)stream>>>(
+        sdf, weight, color, rows, (const unsigned long long*)masks, n_rows, slot_keys,
+        (const float4*)packed, w2c, p);
     return (int)cudaGetLastError();
 }

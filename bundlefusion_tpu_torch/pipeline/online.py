@@ -233,11 +233,8 @@ class BundleFusion:
         if not valid:
             packed = torch.full_like(packed, EMPTY_KEY)
         allocate_packed(self.table, packed)
-        self._apply_tsdf_ops(
-            d, c, T_cur[None],
-            torch.tensor([1.0 if valid else 0.0], dtype=torch.float32, device=dev),
-            torch.zeros((1,), dtype=torch.int32, device=dev),
-        )
+        # signs and image indices stay on the host: the op reads nothing back
+        self._apply_tsdf_ops(d, c, T_cur[None], [1.0 if valid else 0.0], [0])
 
     def _tsdf_rows(self, packed_rows: np.ndarray, fid_cur: int, T_cur, cur_valid: bool):
         """Re-integration frame: up to R rows (de/re/int ops) plus the
@@ -249,29 +246,24 @@ class BundleFusion:
         T_cur = self._as_pose(T_cur)
         rows = torch.as_tensor(packed_rows, dtype=torch.float32, device=dev)
         row_fids = rows[:, 0].to(torch.int64)
-        row_ops = rows[:, 1].to(torch.int32)
         T_olds = rows[:, 2:18].reshape(R, 4, 4)
         T_news = rows[:, 18:34].reshape(R, 4, 4)
         fids = torch.cat([row_fids, torch.tensor([fid_cur], device=dev)])
         depths, colors = self._decode_frames(fids)           # [R+1, ...]
-        de_en = (row_ops == 1) | (row_ops == 2)
-        re_en = (row_ops == 2) | (row_ops == 3)
-        cur_v = torch.tensor([bool(cur_valid)], device=dev)
+        host_ops = [int(m) for m in np.asarray(packed_rows)[:, 1]]
+        de_en = [m in (1, 2) for m in host_ops]
+        re_en = [m in (2, 3) for m in host_ops]
 
-        # ops: [de_0, re_0, de_1, re_1, ..., current]
+        # ops: [de_0, re_0, de_1, re_1, ..., current]; signs and image
+        # indices stay on the host, so the op reads nothing back
         poses = torch.cat([torch.stack([T_olds, T_news], 1).reshape(2 * R, 4, 4), T_cur[None]])
-        signs = torch.cat([
-            torch.stack([-de_en.to(torch.float32), re_en.to(torch.float32)], 1).reshape(2 * R),
-            cur_v.to(torch.float32),
-        ])
-        img_of_op = torch.cat([
-            torch.arange(R, dtype=torch.int32, device=dev).repeat_interleave(2),
-            torch.tensor([R], dtype=torch.int32, device=dev),
-        ])
+        signs = [s for de, re in zip(de_en, re_en) for s in (-float(de), float(re))]
+        signs.append(float(bool(cur_valid)))
+        img_of_op = [i for i in range(R) for _ in (0, 1)] + [R]
 
         # batched allocation: re-integration targets + current frame, with
         # the dedup budget scaled so each frame keeps its own
-        alloc_en = torch.cat([re_en, cur_v])
+        alloc_en = torch.tensor(re_en + [bool(cur_valid)], device=dev)
         alloc_T = torch.cat([T_news, T_cur[None]])
         packed = torch.stack([
             candidate_keys(depths[i], self.intr_int, alloc_T[i], self.tsdf_params)

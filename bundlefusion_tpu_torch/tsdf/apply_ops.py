@@ -10,12 +10,19 @@ sequentially per voxel, in array order. Sign 0 is a bitwise no-op.
   payload rows given their packed block keys.
 - :func:`apply_tsdf_ops_ref` is the plain full sweep over every payload
   row (twin of ``apply_tsdf_ops_xla``), the oracle of the kernel.
+- :func:`pack_images` is the plain version of the image pass: one
+  ``(d_q, r_q, g_q, b_q)`` sample per pixel and each image's largest depth.
 - :func:`active_block_rows` is the per-block frustum cull (from
-  ``active_tile_indices``, at block rather than 128-row tile granularity).
-- :func:`apply_tsdf_ops` is the engine's entry point: for a table on the
-  card it culls and launches the hand-written CUDA kernel
-  (``kernels/tsdf_apply.cu``, replacing the Pallas ``_apply_kernel``); for
-  a table on the CPU it runs :func:`apply_tsdf_ops_ref`.
+  ``active_tile_indices``, at block rather than 128-row tile granularity);
+  besides the rows it gives, per row, the bit mask of the ops that can
+  touch it.
+- :func:`apply_tsdf_ops` is the engine's entry point. For a table on the
+  card it launches three hand-written CUDA kernels on the current stream
+  and reads nothing back: ``kernels/tsdf_prepare.cu`` (image pass),
+  ``kernels/tsdf_cull.cu`` (cull into a device-side row list) and
+  ``kernels/tsdf_apply.cu`` (the sweep, replacing the Pallas
+  ``_apply_kernel``). For a table on the CPU it runs
+  :func:`apply_tsdf_ops_ref`.
 
 All of them update the table's payload tensors **in place** (the JAX
 functions return a new table).
@@ -32,6 +39,7 @@ import torch
 
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
 from bundlefusion_tpu_torch.geometry.lie import pose_inverse
+from bundlefusion_tpu_torch.kernels import MAX_OPS  # ops per call: one mask bit each
 from bundlefusion_tpu_torch.tsdf.integrate import TsdfParams
 from bundlefusion_tpu_torch.tsdf.table import (
     BLOCK_SIZE,
@@ -41,6 +49,7 @@ from bundlefusion_tpu_torch.tsdf.table import (
     GRID_DIM,
     GRID_HALF,
     VoxelBlockTable,
+    unpack_key,
 )
 
 V = BLOCK_VOLUME
@@ -63,6 +72,40 @@ def quantize_images(depths: torch.Tensor, colors: torch.Tensor):
     return d_q, c_q
 
 
+def pack_images(depths: torch.Tensor, colors: torch.Tensor):
+    """Plain version of the image pass (``kernels/tsdf_prepare.cu``): the
+    quantised samples as one ``(d_q, r_q, g_q, b_q)`` per pixel,
+    [IMGS, H, W, 4] f32, and each image's largest sampled depth [IMGS]
+    (0 for an image with no positive depth), the cull's far bound."""
+    d_q, c_q = quantize_images(depths, colors)
+    packed = torch.cat([d_q[..., None], c_q], dim=-1).contiguous()
+    img_dmax = torch.clamp(torch.amax(d_q.reshape(d_q.shape[0], -1), dim=1), min=0.0)
+    return packed, img_dmax
+
+
+def _host_ops(signs, img_of_op, n_ops: int, n_imgs: int):
+    """Per-op signs and image indices as host lists, validated. A tensor
+    on the card is read back here (one wait for the device each)."""
+    signs = [float(x) for x in (signs.tolist() if isinstance(signs, torch.Tensor) else signs)]
+    imgs = [int(x) for x in
+            (img_of_op.tolist() if isinstance(img_of_op, torch.Tensor) else img_of_op)]
+    if len(signs) != n_ops or len(imgs) != n_ops:
+        raise ValueError(f"{n_ops} poses but {len(signs)} signs and {len(imgs)} image indices")
+    if any(not 0 <= i < n_imgs for i in imgs):
+        raise ValueError(f"img_of_op {imgs} out of range for {n_imgs} images")
+    return signs, imgs
+
+
+def world_to_camera_rows(poses: torch.Tensor) -> torch.Tensor:
+    """Cam-to-world poses [OPS, 4, 4] -> rows 0-2 of their inverses,
+    [OPS, 3, 4] contiguous: the values of ``pose_inverse`` without its
+    constant bottom row, which the kernels do not read (and in half as
+    many small device ops)."""
+    Rt = poses[..., :3, :3].transpose(-1, -2)
+    ti = -(Rt @ poses[..., :3, 3][..., None])
+    return torch.cat([Rt, ti], dim=-1)
+
+
 def _voxel_centers(key: torch.Tensor, params: TsdfParams):
     """Packed block keys [R] -> per-axis voxel-centre world coords [R, V]
     and the live mask [R]."""
@@ -82,9 +125,11 @@ def _voxel_centers(key: torch.Tensor, params: TsdfParams):
 
 
 def _rows_update(key, sdf, w, col, d_q, c_q, w2c, signs, img_of_op,
-                 intr: CameraIntrinsics, params: TsdfParams):
+                 intr: CameraIntrinsics, params: TsdfParams, op_mask=None):
     """The update rule over rows, on pre-quantised images and world-to-camera
-    matrices. Returns new (sdf, weight, color) rows."""
+    matrices. ``op_mask`` [R, OPS] bool, if given, closes the update gate
+    of op o on every row r with ``op_mask[r, o]`` false. Returns new
+    (sdf, weight, color) rows."""
     wx, wy, wz, live = _voxel_centers(key, params)
     IMGS, H, W = d_q.shape
     dmax = min(params.depth_max, params.max_integration_distance)
@@ -112,6 +157,8 @@ def _rows_update(key, sdf, w, col, d_q, c_q, w2c, signs, img_of_op,
         sd = d - z
         trunc = params.truncation + params.truncation_scale * d
         upd = inb & depth_ok & (sd > -trunc) & live[:, None]
+        if op_mask is not None:
+            upd = upd & op_mask[:, o, None]
         sd_cl = torch.minimum(sd, trunc)
         w_new = (upd.to(torch.float32) * params.integration_weight_sample) * sign
         new_w = torch.clamp(w + w_new, 0.0, params.integration_weight_max)
@@ -146,8 +193,11 @@ def apply_tsdf_ops_ref(table: VoxelBlockTable, depths, colors, poses, signs,
                        ) -> VoxelBlockTable:
     """Plain full sweep: the update rule over every payload row (live or
     not; dead rows and the dummy row stay untouched), in place. The oracle
-    of the CUDA kernel and the CPU path of :func:`apply_tsdf_ops`."""
+    of the CUDA kernels and the CPU path of :func:`apply_tsdf_ops`; takes
+    ``signs`` / ``img_of_op`` as tensors or host sequences."""
     N = table.num_blocks
+    signs, img_of_op = _host_ops(signs, img_of_op, poses.shape[0], depths.shape[0])
+    signs = torch.tensor(signs, dtype=torch.float32, device=depths.device)
     d_q, c_q = quantize_images(depths, colors)
     w2c = pose_inverse(poses)
     for r0 in range(0, N, REF_CHUNK_ROWS):
@@ -163,9 +213,12 @@ def apply_tsdf_ops_ref(table: VoxelBlockTable, depths, colors, poses, signs,
 
 
 def active_block_rows(table: VoxelBlockTable, w2c, signs, intr: CameraIntrinsics,
-                      params: TsdfParams, H: int, W: int, op_dmax=None) -> torch.Tensor:
-    """Per-block frustum cull: int32 indices of the live payload rows whose
-    block any op with sign != 0 can touch.
+                      params: TsdfParams, H: int, W: int, op_dmax=None):
+    """Per-block frustum cull, the plain version of ``kernels/tsdf_cull.cu``.
+
+    Returns ``(rows, masks)``: int32 indices of the live payload rows whose
+    block any op with sign != 0 can touch, ascending, and per listed row an
+    int64 whose bit o says that op o can touch it (at most 64 ops).
 
     A voxel updates only if its centre projects in bounds with z > 0 and z
     is within the truncation band of a valid depth. A block in front of
@@ -175,42 +228,57 @@ def active_block_rows(table: VoxelBlockTable, w2c, signs, intr: CameraIntrinsics
     camera plane are kept. The image test is widened by half a pixel on
     each side, because a centre at u in [-0.5, 0) still rounds to pixel 0
     (the reference's tile-level test, ``>= 0`` / ``<= W - 1``, hides that
-    edge behind 128-row tiles).
+    edge behind 128-row tiles). ``op_dmax`` [OPS], the largest sampled
+    depth of each op's image, tightens the far bound.
     """
-    # slots are handed out ascending, so every live row lies below high_water
-    N = int(table.high_water)
+    dev = table.slot_keys.device
+    OPS = w2c.shape[0]
+    if OPS > MAX_OPS:
+        raise ValueError(f"{OPS} ops: the op mask holds at most {MAX_OPS}")
     bs = BLOCK_SIZE * params.voxel_size
-    geo = table.slot_geo[:N]
-    live = geo[:, 3] > 0.5
-    corner = geo[:, :3] * bs
+    key = table.slot_keys[:table.num_blocks]
+    live_rows = torch.nonzero(key != EMPTY_KEY).reshape(-1)
+    corner = unpack_key(key[live_rows]).to(torch.float32) * bs
     offs = torch.tensor(
         [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)],
-        dtype=torch.float32, device=geo.device,
+        dtype=torch.float32, device=dev,
     ) * bs
-    pts = corner[:, None, :] + offs[None]                   # [N, 8, 3]
+    pts = corner[:, None, :] + offs[None]                   # [L, 8, 3]
+    x, y, z_w = (pts[:, None, :, a] for a in range(3))      # [L, 1, 8]
+
+    def cam(i):  # row i of w2c applied to the corners, [L, OPS, 8]
+        r = w2c[None, :, i, :, None]
+        return r[..., 0, :] * x + r[..., 1, :] * y + r[..., 2, :] * z_w + r[..., 3, :]
+
     dmax = min(params.depth_max, params.max_integration_distance)
-    any_op = torch.zeros((N,), dtype=torch.bool, device=geo.device)
-    signs_host = signs.tolist()
-    for o in range(w2c.shape[0]):
-        if signs_host[o] == 0.0:
-            continue
-        dm = dmax if op_dmax is None else min(float(op_dmax[o]), dmax)
-        zmax = dm + params.truncation + params.truncation_scale * dm
-        R, t = w2c[o, :3, :3], w2c[o, :3, 3]
-        pc = pts @ R.T + t
-        z = pc[..., 2]
-        all_front = torch.all(z > 1e-3, dim=1)
-        zs = torch.clamp(z, min=1e-3)
-        u = pc[..., 0] / zs * intr.fx + intr.cx
-        v = pc[..., 1] / zs * intr.fy + intr.cy
-        inside = (
-            (torch.amax(u, 1) >= -0.5) & (torch.amin(u, 1) <= W - 0.5)
-            & (torch.amax(v, 1) >= -0.5) & (torch.amin(v, 1) <= H - 0.5)
-            & (torch.amin(z, 1) <= zmax)
-        )
-        straddle = torch.any(z > 0.0, dim=1) & ~all_front
-        any_op |= torch.where(all_front, inside, straddle)
-    return torch.nonzero(live & any_op).reshape(-1).to(torch.int32)
+    if op_dmax is None:
+        dm = torch.full((OPS,), dmax, dtype=torch.float32, device=dev)
+    else:
+        dm = torch.clamp(torch.as_tensor(op_dmax, dtype=torch.float32, device=dev), max=dmax)
+    zmax = dm + params.truncation + params.truncation_scale * dm
+    z = cam(2)
+    all_front = torch.all(z > 1e-3, dim=2)
+    zs = torch.clamp(z, min=1e-3)
+    u = cam(0) / zs * intr.fx + intr.cx
+    v = cam(1) / zs * intr.fy + intr.cy
+    inside = (
+        (torch.amax(u, 2) >= -0.5) & (torch.amin(u, 2) <= W - 0.5)
+        & (torch.amax(v, 2) >= -0.5) & (torch.amin(v, 2) <= H - 0.5)
+        & (torch.amin(z, 2) <= zmax[None])
+    )
+    straddle = torch.any(z > 0.0, dim=2) & ~all_front
+    active = torch.as_tensor(signs, dtype=torch.float32, device=dev) != 0
+    touch = torch.where(all_front, inside, straddle) & active[None]    # [L, OPS]
+    bits = touch.to(torch.int64) << torch.arange(OPS, dtype=torch.int64, device=dev)[None]
+    masks = bits.sum(dim=1)
+    listed = masks != 0
+    return live_rows[listed].to(torch.int32), masks[listed]
+
+
+def mask_bits(masks: torch.Tensor, n_ops: int) -> torch.Tensor:
+    """int64 op masks [R] -> bool [R, OPS]."""
+    shifts = torch.arange(n_ops, dtype=torch.int64, device=masks.device)
+    return ((masks[:, None] >> shifts[None]) & 1).to(torch.bool)
 
 
 def apply_tsdf_ops(table: VoxelBlockTable, depths, colors, poses, signs, img_of_op,
@@ -221,61 +289,68 @@ def apply_tsdf_ops(table: VoxelBlockTable, depths, colors, poses, signs, img_of_
       depths: [IMGS, H, W] f32 meters (non-finite = invalid).
       colors: [IMGS, H, W, 3] f32 in [0, 1].
       poses: [OPS, 4, 4] cam-to-world per op.
-      signs: [OPS] f32: +1 integrate, -1 de-integrate, 0 no-op.
-      img_of_op: [OPS] int32 index into depths / colors.
+      signs: [OPS] +1 integrate, -1 de-integrate, 0 no-op.
+      img_of_op: [OPS] index into depths / colors.
 
-    A table on the card launches the CUDA kernel over the culled rows (and
-    raises if it cannot); a table on the CPU runs the plain full sweep.
+    ``signs`` and ``img_of_op`` are host values: sequences or CPU tensors.
+    Tensors on the card are taken too, but are read back first, which
+    waits for the device.
+
+    A table on the card launches the three CUDA kernels (image pass, cull,
+    sweep) on the current stream, and raises if it cannot; with host
+    ``signs`` / ``img_of_op`` nothing between entry and return waits for
+    the device. A table on the CPU runs the plain full sweep.
     """
     if not table.sdf.is_cuda:
         return apply_tsdf_ops_ref(table, depths, colors, poses, signs, img_of_op,
                                   intr, params)
-    from bundlefusion_tpu_torch.kernels import tsdf_apply_launch
+    from bundlefusion_tpu_torch.kernels import CUDA_STAGES
 
     return _apply_culled(table, depths, colors, poses, signs, img_of_op, intr,
-                         params, tsdf_apply_launch)
+                         params, CUDA_STAGES)
 
 
-def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, launch):
-    """Quantise the images, cull the rows, pack the per-op arguments and
-    hand them to ``launch`` (the kernel's launcher, or :func:`_launch_plain`
-    at the same interface)."""
+def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, stages):
+    """The culled path: image pass, cull, sweep. ``stages`` is the three
+    launchers ``(prepare, cull, sweep)``: ``kernels.CUDA_STAGES``, or
+    :data:`PLAIN_STAGES` at the same interfaces."""
+    prepare, cull, sweep = stages
     OPS = poses.shape[0]
     IMGS, H, W = depths.shape
-    imgs_host = img_of_op.tolist()
-    if any(not 0 <= i < IMGS for i in imgs_host):
-        raise ValueError(f"img_of_op {imgs_host} out of range for {IMGS} images")
-    d_q, c_q = quantize_images(depths, colors)
-    w2c = pose_inverse(poses)
-    signs = signs.to(torch.float32)
-    img_of_op = img_of_op.to(torch.int32)
-    # per-op far bound from the op image's largest sampled depth
-    op_dmax = torch.amax(d_q.reshape(d_q.shape[0], -1), dim=1)[img_of_op.long()]
-    rows = active_block_rows(table, w2c, signs, intr, params, H, W,
-                             op_dmax=op_dmax.tolist())
-    meta = torch.zeros((OPS, 16), dtype=torch.float32, device=depths.device)
-    meta[:, 0:9] = w2c[:, :3, :3].reshape(OPS, 9)
-    meta[:, 9:12] = w2c[:, :3, 3]
-    meta[:, 12] = signs
-    meta[:, 13] = img_of_op.to(torch.float32)
-    launch(table, rows, d_q.contiguous(), c_q.permute(0, 3, 1, 2).contiguous(),
-           meta, intr, params)
+    signs, imgs = _host_ops(signs, img_of_op, OPS, IMGS)
+    if OPS > MAX_OPS:
+        raise ValueError(f"{OPS} ops: the op mask holds at most {MAX_OPS}")
+    w2c = world_to_camera_rows(poses.to(torch.float32))
+    packed, img_dmax = prepare(depths.contiguous(), colors.contiguous())
+    rows, masks, n_rows = cull(table, w2c, signs, imgs, img_dmax, intr, params, H, W)
+    sweep(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr, params)
     return table
 
 
-def _launch_plain(table, rows, depth_q, color_q_planar, meta, intr, params) -> None:
-    """The kernel's computation in plain PyTorch, at the launcher's
-    interface: the update rule over the listed rows only."""
-    OPS = meta.shape[0]
-    w2c = torch.zeros((OPS, 4, 4), dtype=torch.float32, device=meta.device)
-    w2c[:, :3, :3] = meta[:, 0:9].reshape(OPS, 3, 3)
-    w2c[:, :3, 3] = meta[:, 9:12]
-    r = rows.long()
+def _cull_plain(table, w2c, signs, imgs, img_dmax, intr, params, H, W):
+    """:func:`active_block_rows` at the cull launcher's interface: the row
+    list, the masks and the number of listed rows as a tensor [1]."""
+    rows, masks = active_block_rows(table, w2c, signs, intr, params, H, W,
+                                    op_dmax=img_dmax[imgs])
+    n_rows = torch.tensor([rows.shape[0]], dtype=torch.int32, device=rows.device)
+    return rows, masks, n_rows
+
+
+def _launch_plain(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr, params) -> None:
+    """The sweep kernel's computation in plain PyTorch, at the launcher's
+    interface: the update rule over the first ``n_rows`` listed rows, each
+    op applied only to the rows whose mask holds its bit."""
+    n = int(n_rows)
+    r = rows[:n].long()
     sdf, w, col = _rows_update(
-        table.slot_keys[r], table.sdf[r], table.weight[r], table.color[r], depth_q,
-        color_q_planar.permute(0, 2, 3, 1), w2c, meta[:, 12], meta[:, 13].to(torch.int32),
-        intr, params,
+        table.slot_keys[r], table.sdf[r], table.weight[r], table.color[r],
+        packed[..., 0], packed[..., 1:4], w2c,
+        torch.tensor(signs, dtype=torch.float32, device=packed.device), imgs,
+        intr, params, op_mask=mask_bits(masks[:n], len(signs)),
     )
     table.sdf[r] = sdf
     table.weight[r] = w
     table.color[r] = col
+
+
+PLAIN_STAGES = (pack_images, _cull_plain, _launch_plain)

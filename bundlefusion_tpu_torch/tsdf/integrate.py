@@ -164,17 +164,8 @@ def visible_block_indices(table: VoxelBlockTable, intr: CameraIntrinsics, cam_to
 def _apply_one(table, depth, color, cam_to_world, intr, params, sign):
     from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops
 
-    dev = table.device
-    return apply_tsdf_ops(
-        table,
-        depth[None],
-        color[None],
-        cam_to_world[None],
-        torch.full((1,), sign, dtype=torch.float32, device=dev),
-        torch.zeros((1,), dtype=torch.int32, device=dev),
-        intr,
-        params,
-    )
+    return apply_tsdf_ops(table, depth[None], color[None], cam_to_world[None],
+                          [sign], [0], intr, params)
 
 
 def integrate(table: VoxelBlockTable, depth, color, intr: CameraIntrinsics,

@@ -6,23 +6,37 @@ default, full-width configuration (``AppConfig()``: 640x480 input, 320x240
 integration, 1 cm voxels, 200 064 payload rows, 262 144 keys):
 
 1. build: compile every CUDA kernel from the sources in this checkout;
-2. kernels: hold each kernel against its plain PyTorch version on the card
-   at the main path's shapes (1-op and 11-op batches), and time both;
+2. kernels: hold each of the three kernels of the fused TSDF op (image
+   pass, cull, sweep) and the op as a whole against the plain PyTorch
+   versions on the card at the main path's shapes (1 op / 1 image and
+   11 ops / 6 images), show that one call of the op waits for nothing, and
+   time everything in turns;
 3. slice: drive the engine over 40 synthetic frames at poses with 1 cm of
    noise, pushing the noise-free poses after frames 10, 20 and 30 (as
    submap retirements do) and at the end, then drain the re-integration
-   queue and extract the mesh. The kernel is held against its plain
-   version again at the engine's first 1-op and first 11-op dispatch.
+   queue and extract the mesh. The op is held against its plain version
+   again at the engine's first 1-op and first 11-op dispatch;
+4. profile: 20 more frames of the same loop under ``torch.profiler`` for the
+   card's busy share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, and last ``{"ok": true, "device": {...}}``. In
-the kernels line, at 11 ops (``_1op``: at 1 op), ``ms`` is the engine's
-entry point ``apply_tsdf_ops`` (quantise, cull, pack, launch) and
-``plain_ms`` its plain version ``apply_tsdf_ops_ref``, both by CUDA events;
-``launch_ms`` is one bare launch by CUDA events (host enqueue included) and
-``kernel_ms`` the kernel's own device time from the profiler. Any failed
-phase raises and exits non-zero; without CUDA it exits non-zero before
-doing anything.
+the kernels line every time is at 11 ops (``_1op``: at 1 op). ``kernel_ms``
+is the kernel's own device time from the profiler's trace, launches back to
+back (``kernel_ms_cold``: the payload rewritten before each launch, so the
+rows come from device memory and not from L2); ``bound_ms`` is the least
+time the card could take: the larger of bytes over 3.35 TB/s and operations
+over 67 TFLOP/s, from this run's shapes, row list and masks. ``ms`` is by
+CUDA events, host enqueue included: for ``tsdf_apply`` the engine's entry
+point ``apply_tsdf_ops`` (all three kernels), ``plain_ms`` its plain version
+``apply_tsdf_ops_ref``, ``launch_ms`` one bare launch of the sweep and
+``enqueue_ms`` the host's time per call of the op over 100 calls back to
+back; for
+``tsdf_prepare`` and ``tsdf_cull`` one call of the launcher, ``plain_ms``
+their plain versions. ``max_abs_err`` of ``tsdf_cull`` is the number of rows
+that the full plain sweep changes and the list lacks. ``library_ms`` is null:
+no single PyTorch call computes any of the three. Any failed phase raises
+and exits non-zero; without CUDA it exits non-zero before doing anything.
 
     python3 chip_smoke.py
 """
@@ -42,6 +56,18 @@ N_FRAMES = 40
 PUSH_AFTER = (10, 20, 30)
 SDF_ATOL = 1e-6   # sdf / colour: float32 rounding of the division; weight exact
 REPS = 5
+PROFILE_FRAMES = 20
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
+ROW_BYTES = 5 * 512 * 4     # sdf + weight + 3 colour channels of one payload row
+FLOP_PER_VOXEL_OP = 40      # projection 18, two divisions, pixel 4, gate 4, update 12
+FLOP_PER_CORNER = 30        # projection 18, two divisions, pixel 4, six min / max
+EMPTY_KEY = 2**31 - 1
+REPLACES = {
+    "tsdf_prepare": "bundlefusion_tpu/tsdf/apply_pallas.py:620",
+    "tsdf_cull": "bundlefusion_tpu/tsdf/apply_pallas.py:554",
+    "tsdf_apply": "bundlefusion_tpu/tsdf/apply_pallas.py:104",
+}
 
 
 def _gpu_line() -> str:
@@ -77,15 +103,31 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def _kernel_device_ms(fn, kernel="tsdf_apply_kernel"):
-    """Mean device time of ``kernel`` over REPS calls of ``fn``, from the
-    profiler's trace of the card: the CUDA events around one call also
-    time the host's enqueue, which is most of a call this short. None
-    when the trace holds no such kernel."""
+def _enqueue_ms(fn, n=100) -> float:
+    """Host time per call of ``fn`` over ``n`` calls back to back, with no
+    wait in between: what the call costs a caller that streams its work to
+    the card."""
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    _sync()
+    return ms
+
+
+def _kernel_device_ms(fn, kernel, before=None):
+    """Mean device time of ``kernel`` over REPS calls of ``fn`` (each after
+    ``before()``, if given), from the profiler's trace of the card: the
+    CUDA events around one call also time the host's enqueue, which is
+    most of a call this short. None when the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(REPS):
+            if before is not None:
+                before()
             fn()
         _sync()
     hits = [e for e in prof.key_averages() if kernel in e.key]
@@ -115,8 +157,21 @@ def _restore(dst, src):
     dst.color.copy_(src.color)
 
 
+def _bound(n_bytes: float, flop: float):
+    """(least ms the card could take, which limit sets it)."""
+    by_bytes, by_flop = n_bytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_flop), ("bytes" if by_bytes >= by_flop else "operations")
+
+
+def _changed_rows(after, before):
+    ch = torch.zeros(after.sdf.shape[0], dtype=torch.bool, device=after.sdf.device)
+    for name in ("sdf", "weight", "color"):
+        ch |= (getattr(after, name) != getattr(before, name)).any(dim=1)
+    return ch
+
+
 def phase_kernels(dev, seq, noisy, gt, app):
-    """Kernel vs plain on the card at the main path's shapes."""
+    """Kernels vs plain versions on the card at the main path's shapes."""
     from bundlefusion_tpu_torch import kernels
     from bundlefusion_tpu_torch.config import BundlingConfig
     from bundlefusion_tpu_torch.pipeline.online import BundleFusion
@@ -139,13 +194,12 @@ def phase_kernels(dev, seq, noisy, gt, app):
     P_gt = torch.as_tensor(gt[:6], device=dev)
     # base state: frames 0-4 fused at their noisy poses (plain version)
     base = eng.table
-    apply_ops.apply_tsdf_ops_ref(
-        base, D[:5], C[:5], P_noisy[:5], torch.ones(5, device=dev),
-        torch.arange(5, dtype=torch.int32, device=dev), intr, params)
+    apply_ops.apply_tsdf_ops_ref(base, D[:5], C[:5], P_noisy[:5], [1.0] * 5, list(range(5)),
+                                 intr, params)
 
     batches = {
         # the fast path: the current frame's fuse
-        "1op": (D[5:6], C[5:6], P_noisy[5:6], [1.0], [0]),
+        "1op": (D[5:6].contiguous(), C[5:6].contiguous(), P_noisy[5:6], [1.0], [0]),
         # the rows path: 5 de/re rows (row 2 skipped: sign 0) + current frame
         "11op": (
             D, C,
@@ -154,12 +208,20 @@ def phase_kernels(dev, seq, noisy, gt, app):
             [0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5],
         ),
     }
+    N = base.num_blocks
+    wave = kernels.tsdf_apply_wave()
     out = {}
     work = base.clone()
     ref = base.clone()
-    for name, (d, c, p, s, img) in batches.items():
-        signs = torch.tensor(s, dtype=torch.float32, device=dev)
-        imgs = torch.tensor(img, dtype=torch.int32, device=dev)
+
+    def restore():
+        _restore(work, base)
+        _restore(ref, base)
+
+    for name, (d, c, p, signs, imgs) in batches.items():
+        H, W = d.shape[1:]
+        w2c = apply_ops.world_to_camera_rows(p)
+        imgs_t = torch.tensor(imgs, device=dev)
 
         def run_kernel():
             apply_ops.apply_tsdf_ops(work, d, c, p, signs, imgs, intr, params)
@@ -167,38 +229,127 @@ def phase_kernels(dev, seq, noisy, gt, app):
         def run_plain():
             apply_ops.apply_tsdf_ops_ref(ref, d, c, p, signs, imgs, intr, params)
 
-        _restore(work, base)
-        _restore(ref, base)
+        # the op as a whole
+        restore()
         run_kernel()
         run_plain()
         _sync()
         err = _compare(work, ref)
-        # the bare launch, on the rows and arguments the wrapper prepares
-        launch_args = []
-        apply_ops._apply_culled(work, d, c, p, signs, imgs, intr, params,
-                                lambda *a: launch_args.extend(a))
+        changed = _changed_rows(ref, base)
+        # one call of the op waits for nothing: any synchronising call raises
+        _restore(work, base)
+        _sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_kernel()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync()
+        _compare(work, ref)
 
-        def run_launch():
-            kernels.tsdf_apply_launch(*launch_args)
+        # the image pass: bitwise
+        packed, dmax = kernels.tsdf_prepare_launch(d, c)
+        p_packed, p_dmax = apply_ops.pack_images(d, c)
+        _sync()
+        if not (torch.equal(packed.view(torch.int32), p_packed.view(torch.int32))
+                and torch.equal(dmax, p_dmax)):
+            raise AssertionError("tsdf_prepare and pack_images differ")
+        prep_err = float((packed - p_packed).abs().max())
+
+        # the cull: every row the full plain sweep changes is listed
+        rows, masks, n_rows = kernels.tsdf_cull_launch(base, w2c, signs, imgs, dmax, intr,
+                                                       params, H, W)
+        p_rows, _ = apply_ops.active_block_rows(base, w2c, signs, intr, params, H, W,
+                                                op_dmax=dmax[imgs_t])
+        _sync()
+        n = int(n_rows)
+        in_list = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+        in_list[rows[:n].long()] = True
+        in_plain = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+        in_plain[p_rows.long()] = True
+        missed = int((changed & ~in_list).sum())
+        if missed or int(in_list.sum()) != n:
+            raise AssertionError(f"tsdf_cull: {missed} changed rows not listed, "
+                                 f"{n - int(in_list.sum())} rows listed twice")
+        row_ops = int(apply_ops.mask_bits(masks[:n], len(signs)).sum())
+        live_rows = int((base.slot_keys[:-1] != EMPTY_KEY).sum())
+        active = sum(1 for x in signs if x != 0.0)
+
+        # the bare sweep on the kernel's list
+        def run_launch(grid=0):
+            kernels.tsdf_apply_launch(work, rows, masks, n_rows, packed, w2c, signs, imgs,
+                                      intr, params, grid_ctas=grid)
+
+        _restore(work, base)
+        run_launch()
+        _sync()
+        err = max(err, _compare(work, ref))
+
+        def run_prepare():
+            kernels.tsdf_prepare_launch(d, c)
+
+        def run_prepare_plain():
+            apply_ops.pack_images(d, c)
+
+        def run_cull():
+            kernels.tsdf_cull_launch(base, w2c, signs, imgs, dmax, intr, params, H, W)
+
+        def run_cull_plain():
+            apply_ops.active_block_rows(base, w2c, signs, intr, params, H, W,
+                                        op_dmax=dmax[imgs_t])
 
         # timing in turns, each run on a restored copy of the base state
-        times = {run_plain: [], run_kernel: [], run_launch: []}
+        order = (run_plain, run_kernel, run_launch, run_prepare, run_prepare_plain,
+                 run_cull, run_cull_plain)
+        times = {fn: [] for fn in order}
         for r in range(REPS):
-            order = (run_plain, run_kernel, run_launch)
             for fn in order if r % 2 == 0 else order[::-1]:
-                _restore(work, base)
-                _restore(ref, base)
+                restore()
                 _sync()
                 times[fn].append(_event_ms(fn))
+        med = {fn.__name__: statistics.median(v) for fn, v in times.items()}
+
+        used_imgs = len({i for i, x in zip(imgs, signs) if x != 0.0})
+        sample_bytes = H * W * 16
         out[name] = {
             "max_abs_err": err,
-            "ms": statistics.median(times[run_kernel]),
-            "plain_ms": statistics.median(times[run_plain]),
-            "launch_ms": statistics.median(times[run_launch]),
-            "kernel_ms": _kernel_device_ms(run_launch),
-            "rows": int(launch_args[1].shape[0]),
-            "live_rows": int((work.slot_keys[:-1] != 2**31 - 1).sum()),
+            "ms": med["run_kernel"],
+            "plain_ms": med["run_plain"],
+            "launch_ms": med["run_launch"],
+            "enqueue_ms": _enqueue_ms(run_kernel),
+            "kernel_ms": _kernel_device_ms(run_launch, "tsdf_apply_kernel"),
+            "kernel_ms_cold": _kernel_device_ms(run_launch, "tsdf_apply_kernel", before=restore),
+            # the persistent grid's size, in card-fulls of CTAs (cold rows)
+            "grid_ms": {
+                f"{k}x": _kernel_device_ms(lambda: run_launch(max(1, int(wave * k))),
+                                           "tsdf_apply_kernel", before=restore)
+                for k in (0.5, 1, 2, 4)
+            },
+            "bound": _bound(n * (2 * ROW_BYTES + 12) + used_imgs * sample_bytes,
+                            row_ops * 512 * FLOP_PER_VOXEL_OP),
+            "rows": n,
+            "rows_plain": int(p_rows.shape[0]),
+            "rows_both": int((in_list & in_plain).sum()),
+            "rows_changed": int(changed.sum()),
+            "live_rows": live_rows,
+            "ops_per_row": row_ops / max(n, 1),
+            "prepare": {
+                "max_abs_err": prep_err,
+                "ms": med["run_prepare"],
+                "plain_ms": med["run_prepare_plain"],
+                "kernel_ms": _kernel_device_ms(run_prepare, "tsdf_prepare_kernel"),
+                "bound": _bound(len(d) * H * W * 32 + len(d) * 4, len(d) * H * W * 20),
+            },
+            "cull": {
+                "max_abs_err": float(missed),
+                "ms": med["run_cull"],
+                "plain_ms": med["run_cull_plain"],
+                "kernel_ms": _kernel_device_ms(run_cull, "tsdf_cull_kernel"),
+                "bound": _bound(N * 4 + n * 12 + len(signs) * 64 + 4,
+                                live_rows * active * 8 * FLOP_PER_CORNER),
+            },
         }
+    out["wave_ctas"] = wave
     del eng, base, work, ref
     torch.cuda.empty_cache()
     return out
@@ -231,6 +382,64 @@ class _CheckedApply:
             del snap
 
 
+def _drive_frame(eng, seq, noisy, gt, i, stage):
+    """Frame ``i`` of the fusion half, each stage run through
+    ``stage(name, fn)``; the noise-free poses are pushed after the frames
+    of PUSH_AFTER, as submap retirements do."""
+    eng.frame_idx = i
+    slot = eng._store_slot(i)
+    stage("archive", lambda: eng._archive_frame(seq["depth"][i], seq["color"][i], slot))
+    stage("tsdf", lambda: eng._tsdf_dispatch(slot, noisy[i], True))
+    eng._record_frame(i, noisy[i], True)
+    stage("render", lambda: eng._render_frame(i, noisy[i]))
+    if i in PUSH_AFTER:
+        eng.complete_traj = [gt[f].copy() for f in range(len(eng.complete_traj))]
+        eng._push_optimized_to_manager()
+
+
+def phase_profile(dev, seq, noisy, gt, app):
+    """The last PROFILE_FRAMES frames of the same loop under the profiler:
+    wall and device time per frame, the card's busy share, the kernels
+    that hold most of the device time, and the three TSDF kernels' mean
+    device time on the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bundlefusion_tpu_torch.config import BundlingConfig
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+
+    eng = BundleFusion(seq["intrinsics"], app, BundlingConfig(),
+                       max_keyframes=N_FRAMES // 10 + 2, device=dev)
+    first = N_FRAMES - PROFILE_FRAMES
+    for i in range(first):
+        _drive_frame(eng, seq, noisy, gt, i, lambda _name, fn: fn())
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(first, N_FRAMES):
+            _drive_frame(eng, seq, noisy, gt, i, lambda _name, fn: fn())
+        _sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # events of the card only: a host op's entry repeats its kernels' time
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    if not device_ms > 0:
+        raise AssertionError("the profiler's trace holds no device time")
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    return {
+        "frames": PROFILE_FRAMES,
+        "wall_ms_per_frame": wall_ms / PROFILE_FRAMES,
+        "device_ms_per_frame": device_ms / PROFILE_FRAMES,
+        "device_busy_share": device_ms / wall_ms,
+        "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in evs[:8]],
+        "tsdf_kernel_ms": {
+            e.key.split("(")[0]: e.self_device_time_total / 1e3 / e.count
+            for e in evs if e.key.startswith("tsdf_")
+        },
+    }
+
+
 def phase_slice(dev, seq, noisy, gt, app):
     from bundlefusion_tpu_torch import kernels
     from bundlefusion_tpu_torch.config import BundlingConfig
@@ -250,23 +459,20 @@ def phase_slice(dev, seq, noisy, gt, app):
         _sync()
         return r, (time.perf_counter() - t0) * 1e3
 
-    kernels.launch_counts["tsdf_apply"] = 0
+    def stage(name, fn):
+        rows_before, checked_before = eng.reint_frames, len(checker.checked)
+        _, ms = timed(fn)
+        if name == "tsdf":
+            if len(checker.checked) != checked_before:  # skip frames that ran a check
+                return
+            name = "tsdf_rows" if eng.reint_frames > rows_before else "tsdf_fast"
+        stages[name].append(ms)
+
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
     t_start = time.perf_counter()
     for i in range(N_FRAMES):
-        eng.frame_idx = i
-        slot = eng._store_slot(i)
-        _, ms = timed(lambda: eng._archive_frame(seq["depth"][i], seq["color"][i], slot))
-        stages["archive"].append(ms)
-        rows_before, checked_before = eng.reint_frames, len(checker.checked)
-        _, ms = timed(lambda: eng._tsdf_dispatch(slot, noisy[i], True))
-        if len(checker.checked) == checked_before:  # skip frames that ran a check
-            stages["tsdf_rows" if eng.reint_frames > rows_before else "tsdf_fast"].append(ms)
-        eng._record_frame(i, noisy[i], True)
-        _, ms = timed(lambda: eng._render_frame(i, noisy[i]))
-        stages["render"].append(ms)
-        if i in PUSH_AFTER:
-            eng.complete_traj = [gt[f].copy() for f in range(len(eng.complete_traj))]
-            eng._push_optimized_to_manager()
+        _drive_frame(eng, seq, noisy, gt, i, stage)
     eng.frame_idx = N_FRAMES
     # finish(): the final optimized trajectory, then the drain
     eng.complete_traj = [gt[f].copy() for f in range(N_FRAMES)]
@@ -274,7 +480,7 @@ def phase_slice(dev, seq, noisy, gt, app):
     eng._drain_reintegration()
     _sync()
     loop_s = time.perf_counter() - t_start
-    launches = kernels.launch_counts["tsdf_apply"]
+    launches = dict(kernels.launch_counts)
 
     inv = check_invariants(eng.table)
     fails = int(eng.table.num_alloc_failures)
@@ -286,7 +492,8 @@ def phase_slice(dev, seq, noisy, gt, app):
     both = np.isfinite(d) & np.isfinite(gt_d)
     med_err = float(np.median(np.abs(d[both] - gt_d[both]))) if both.any() else float("inf")
 
-    if launches != checker.dispatches or launches == 0:
+    if checker.dispatches == 0 or set(launches) != set(kernels.SOURCES) or any(
+            n != checker.dispatches for n in launches.values()):
         raise AssertionError(f"kernel launches {launches} != TSDF dispatches {checker.dispatches}")
     if set(checker.checked) != {"fast", "rows"}:
         raise AssertionError(f"main-path kernel checks incomplete: {checker.checked}")
@@ -345,27 +552,37 @@ def main() -> int:
     app = AppConfig()
     kern = phase_kernels(dev, seq, noisy, gt, app)
     sl = phase_slice(dev, seq, noisy, gt, app)
-    errs = [kern["1op"]["max_abs_err"], kern["11op"]["max_abs_err"]]
-    errs += [c["max_abs_err"] for c in sl["main_path_checks"].values()]
-    kernels_line = {"kernels": [{
-        "name": "tsdf_apply",
-        "route": "cuda",
-        "source": "bundlefusion_tpu_torch/kernels/tsdf_apply.cu",
-        "replaces": "bundlefusion_tpu/tsdf/apply_pallas.py:104",
-        "launches": sl["launches"],
-        "max_abs_err": max(errs),
-        "ms": kern["11op"]["ms"],
-        "plain_ms": kern["11op"]["plain_ms"],
-        "launch_ms": kern["11op"]["launch_ms"],
-        "kernel_ms": kern["11op"]["kernel_ms"],
-        "ms_1op": kern["1op"]["ms"],
-        "plain_ms_1op": kern["1op"]["plain_ms"],
-        "launch_ms_1op": kern["1op"]["launch_ms"],
-        "kernel_ms_1op": kern["1op"]["kernel_ms"],
-        "rows_11op": kern["11op"]["rows"],
-        "rows_1op": kern["1op"]["rows"],
-        "live_rows": kern["11op"]["live_rows"],
-    }]}
+    prof = phase_profile(dev, seq, noisy, gt, app)
+    main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
+
+    def entry(name, sub, extra_err=()):
+        k11 = kern["11op"][sub] if sub else kern["11op"]
+        k1 = kern["1op"][sub] if sub else kern["1op"]
+        e = {
+            "name": name,
+            "route": "cuda",
+            "source": f"bundlefusion_tpu_torch/kernels/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": sl["launches"][name],
+            "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
+            "library_ms": None,
+        }
+        for key in ("ms", "plain_ms", "launch_ms", "enqueue_ms", "kernel_ms", "kernel_ms_cold", "grid_ms",
+                    "rows", "rows_plain", "rows_both", "rows_changed", "ops_per_row"):
+            if key in k11:
+                e[key] = k11[key]
+                e[key + "_1op"] = k1[key]
+        e["bound_ms"], e["bound_by"] = k11["bound"]
+        e["bound_ms_1op"], e["bound_by_1op"] = k1["bound"]
+        return e
+
+    kernels_line = {"kernels": [
+        entry("tsdf_prepare", "prepare"),
+        entry("tsdf_cull", "cull"),
+        {**entry("tsdf_apply", None, main_errs), "live_rows": kern["11op"]["live_rows"],
+         "wave_ctas": kern["wave_ctas"]},
+    ]}
+    sl["profile"] = prof
     sl["build_s"] = build_s
     sl["sequence_render_s"] = seq_s
     print(gpu)

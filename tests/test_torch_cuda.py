@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel against its plain version, on the card.
+"""The hand-written CUDA kernels against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA card. The
 file imports no JAX, so it runs on a machine that has only PyTorch and the
@@ -7,10 +7,11 @@ CUDA toolkit, without the repository's JAX-side ``conftest.py``:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
-voxels) made by the port's own synthetic module. Limits: weight exact,
-sdf and colour within 1e-6 (the kernel rounds each product and the
-division like the plain version does; 1e-6 leaves room for one rounding
-of a running average near 1).
+voxels) made by the port's own synthetic module. Limits: the image pass
+bitwise; the cull a superset of the rows the plain full sweep changes; the
+sweep and the whole op weight exact, sdf and colour within 1e-6 (the kernel
+rounds each product and the division like the plain version does; 1e-6
+leaves room for one rounding of a running average near 1).
 """
 
 import numpy as np
@@ -69,11 +70,11 @@ def test_kernel_matches_plain(setup, signs, img):
     poses = poses.clone()
     poses[1::2, 0, 3] += 0.02  # the re-integration pose differs from the old one
     k, r = base.clone(), base.clone()
-    before = kernels.launch_counts["tsdf_apply"]
+    before = dict(kernels.launch_counts)
     apply_ops.apply_tsdf_ops(k, D, C, poses, s, im, intr, PARAMS)
-    assert kernels.launch_counts["tsdf_apply"] == before + 1
+    assert kernels.launch_counts == {name: n + 1 for name, n in before.items()}
     apply_ops.apply_tsdf_ops_ref(r, D, C, poses, s, im, intr, PARAMS)
-    assert kernels.launch_counts["tsdf_apply"] == before + 1
+    assert kernels.launch_counts == {name: n + 1 for name, n in before.items()}
     torch.cuda.synchronize()
     assert torch.equal(k.weight, r.weight)
     assert float((k.sdf - r.sdf).abs().max()) <= ATOL
@@ -93,8 +94,111 @@ def test_sign_zero_is_bitwise_noop_on_card(setup):
 def test_launcher_rejects_host_tensors(setup):
     base, D, C, P, intr = setup
     host = ttab.VoxelBlockTable(**{k: v.cpu() for k, v in base.__dict__.items()})
-    rows = torch.zeros(1, dtype=torch.int32, device=D.device)
-    meta = torch.zeros((1, 16), dtype=torch.float32, device=D.device)
+    dev = D.device
+    rows = torch.zeros(1, dtype=torch.int32, device=dev)
+    masks = torch.ones(1, dtype=torch.int64, device=dev)
+    n_rows = torch.ones(1, dtype=torch.int32, device=dev)
+    packed, dmax = kernels.tsdf_prepare_launch(D[:1], C[:1])
+    w2c = torch.eye(4, device=dev)[None, :3].contiguous()
     with pytest.raises(ValueError):
-        kernels.tsdf_apply_launch(host, rows, D[:1], C[:1].permute(0, 3, 1, 2).contiguous(),
-                                  meta, intr, PARAMS)
+        kernels.tsdf_apply_launch(host, rows, masks, n_rows, packed, w2c, [1.0], [0],
+                                  intr, PARAMS)
+    with pytest.raises(ValueError):
+        kernels.tsdf_cull_launch(host, w2c, [1.0], [0], dmax, intr, PARAMS, 60, 80)
+    with pytest.raises(ValueError):
+        kernels.tsdf_prepare_launch(D[:1].cpu(), C[:1].cpu())
+    with pytest.raises(ValueError):  # image index out of range
+        kernels.tsdf_apply_launch(base.clone(), rows, masks, n_rows, packed, w2c, [1.0], [1],
+                                  intr, PARAMS)
+
+
+def test_prepare_matches_plain_bitwise(setup):
+    _, D, C, _, _ = setup
+    D, C = D.clone(), C.clone()
+    D[0, :5] = float("nan")
+    D[1, 7, :9] = float("inf")
+    D[1, 8, :9] = float("-inf")
+    D[2, 3, 3] = 2e30
+    D[2, 4, 4] = -1.5
+    C[0, 0, 0] = float("nan")
+    C[1, 1, 1, 2] = 1e31
+    before = kernels.launch_counts["tsdf_prepare"]
+    packed, dmax = kernels.tsdf_prepare_launch(D, C)
+    assert kernels.launch_counts["tsdf_prepare"] == before + 1
+    ref_packed, ref_dmax = apply_ops.pack_images(D, C)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.view(torch.int32), ref_packed.view(torch.int32))
+    assert torch.equal(dmax, ref_dmax) and float(dmax.min()) > 0
+    none = torch.full_like(D[:1], float("nan"))
+    _, dmax0 = kernels.tsdf_prepare_launch(none, C[:1])
+    assert float(dmax0[0]) == 0.0
+
+
+@pytest.mark.parametrize("pose_shift", [0.0, 0.6])
+def test_cull_lists_every_row_the_full_sweep_changes(setup, pose_shift):
+    base, D, C, P, intr = setup
+    P = P.clone()
+    P[:, 0, 3] += pose_shift
+    signs, img = [1.0, -1.0, 1.0], [0, 1, 2]
+    w2c = apply_ops.world_to_camera_rows(P)
+    packed, dmax = kernels.tsdf_prepare_launch(D, C)
+    before = kernels.launch_counts["tsdf_cull"]
+    rows, masks, n_rows = kernels.tsdf_cull_launch(base, w2c, signs, img, dmax, intr, PARAMS,
+                                                   60, 80)
+    assert kernels.launch_counts["tsdf_cull"] == before + 1
+    n = int(n_rows)
+    listed = rows[:n].long()
+    assert n > 0 and torch.unique(listed).shape[0] == n
+    live = base.slot_keys[:-1] != ttab.EMPTY_KEY
+    assert bool(live[listed].all())
+    if pose_shift:
+        assert n < int(live.sum())  # the cull does exclude blocks
+    # per op: every row that op alone changes is listed with its bit
+    bits = torch.zeros((base.num_blocks + 1, 3), dtype=torch.bool, device=D.device)
+    bits[listed] = apply_ops.mask_bits(masks[:n], 3)
+    for op in range(3):
+        alone = [s if o == op else 0.0 for o, s in enumerate(signs)]
+        after = base.clone()
+        apply_ops.apply_tsdf_ops_ref(after, D, C, P, alone, img, intr, PARAMS)
+        changed = torch.zeros(base.num_blocks + 1, dtype=torch.bool, device=D.device)
+        for name in ("sdf", "weight", "color"):
+            changed |= (getattr(after, name) != getattr(base, name)).any(dim=1)
+        assert int(changed.sum()) > 0
+        assert not bool((changed & ~bits[:, op]).any()), op
+    # and it agrees with the plain cull up to blocks on the edge of the test
+    p_rows, p_masks = apply_ops.active_block_rows(base, w2c, signs, intr, PARAMS, 60, 80,
+                                                  op_dmax=dmax[torch.tensor(img)])
+    both = np.intersect1d(listed.cpu().numpy(), p_rows.cpu().numpy()).shape[0]
+    assert both >= 0.99 * max(n, p_rows.shape[0])
+
+
+@pytest.mark.parametrize("signs,img", [
+    ([1.0], [2]),
+    ([-1.0, 1.0] * 5 + [1.0], [0, 0, 1, 1, 2, 2, 0, 0, 1, 1, 2]),
+])
+def test_two_calls_give_bitwise_equal_tables(setup, signs, img):
+    """The row list's order changes from run to run; the result must not.
+    Also: host signs / image indices, and no wait for the device inside."""
+    base, D, C, P, intr = setup
+    poses = P[torch.tensor(img, device=P.device).long()].clone()
+    poses[1::2, 0, 3] += 0.02
+    apply_ops.apply_tsdf_ops(base.clone(), D, C, poses, signs, img, intr, PARAMS)  # build
+    a, b = base.clone(), base.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        apply_ops.apply_tsdf_ops(a, D, C, poses, signs, img, intr, PARAMS)
+        apply_ops.apply_tsdf_ops(b, D, C, poses, signs, img, intr, PARAMS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for name in ("sdf", "weight", "color"):
+        assert torch.equal(getattr(a, name).view(torch.int32),
+                           getattr(b, name).view(torch.int32)), name
+    assert not torch.equal(a.weight, base.weight)
+
+
+def test_image_index_out_of_range_raises_on_card(setup):
+    base, D, C, P, intr = setup
+    with pytest.raises(ValueError):
+        apply_ops.apply_tsdf_ops(base.clone(), D, C, P, [1.0, 1.0, 1.0], [0, 3, 1], intr, PARAMS)
