@@ -1,11 +1,16 @@
 """bundlefusion_tpu_torch — PyTorch + CUDA port of ``bundlefusion_tpu``.
 
 The JAX package stays the reference; this package mirrors its subpackage
-layout (``geometry``, ``io``, ``ops``, ``tsdf``, ``pipeline``) and function
-names so each counterpart is easy to find. Plain tensor code is PyTorch;
-the one Pallas kernel of the JAX package (the fused TSDF integrate /
-de-integrate sweep) is a hand-written CUDA kernel for Hopper under
-``kernels/``, built with ``nvcc`` on first use.
+layout (``geometry``, ``io``, ``ops``, ``tsdf``, ``solver``, ``pipeline``,
+``utils``) and function names so each counterpart is easy to find. Plain
+tensor code is PyTorch; the one Pallas kernel of the JAX package (the fused
+TSDF integrate / de-integrate sweep) is three hand-written CUDA kernels for
+Hopper under ``kernels/``, built with ``nvcc`` on first use.
+
+Ported so far: the per-frame path of the engine (``pipeline.online``:
+SIFT frontend, match filters, correspondence store, chained pose, TSDF
+fusion with re-integration, render, mesh). ``solver`` holds only the
+correspondence store; bundle adjustment and ``submap_step`` are not ported.
 
 This package imports ``torch`` and never ``jax`` or ``bundlefusion_tpu``.
 """
@@ -23,9 +28,16 @@ _torch.set_float32_matmul_precision("highest")
 
 
 def default_device() -> _torch.device:
-    """The CUDA card when one is present, else the CPU."""
-    return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
+    """The CUDA card. Entry points run there unless the caller names another
+    device; without a card this raises rather than landing on the CPU."""
+    if not _torch.cuda.is_available():
+        raise RuntimeError(
+            "bundlefusion_tpu_torch runs on a CUDA card and none is available; "
+            "pass device='cpu' explicitly to run on the CPU"
+        )
+    return _torch.device("cuda")
 
 
 from bundlefusion_tpu_torch.config import AppConfig, BundlingConfig  # noqa: E402,F401
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics  # noqa: E402,F401
+from bundlefusion_tpu_torch.ops.sift import SiftConfig  # noqa: E402,F401

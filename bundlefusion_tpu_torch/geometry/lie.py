@@ -100,8 +100,9 @@ def _so3_left_jacobian(w):
 
 def _rt_to_mat(R, t):
     top = torch.cat([R, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(R.shape[:-2] + (1, 4))
+    # built on the device: a host constant would be a blocking copy per call
+    bottom = R.new_zeros(R.shape[:-2] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], -2)
 
 

@@ -1,7 +1,13 @@
-"""Integration-resolution frame archive for re-integration.
+"""Per-frame device state: dense cache, keypoint store, frame archive.
 
-Port of ``FrameStore`` and its wire codec (``bundlefusion_tpu/pipeline/
-frames.py:92-145``). Frames live on the device in the compact wire encoding
+Port of ``bundlefusion_tpu/pipeline/frames.py``: ``DenseCache`` (the
+reference's ``CUDACache``: downsampled depth, camera-space positions,
+normals, intensity per frame), ``KeyframeStore`` (``SIFTImageManager``'s
+per-image keypoint / descriptor arrays) and ``FrameStore`` with its wire
+codec. All three are dataclasses of fixed-capacity tensors indexed by frame
+slot and are updated in place (the JAX versions return new stores).
+
+Archived frames live on the device in the compact wire encoding
 (uint16 mm depth + uint8 color, the .sens on-disk representation) and are
 gathered by index when a frame is de- or re-integrated. The last slot is a
 scratch slot for frames beyond capacity. ``store_frame`` writes the slot in
@@ -14,9 +20,84 @@ same bits: casts to and from ``int16`` wrap modulo 2^16.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
+
+from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics, unproject
+from bundlefusion_tpu_torch.ops.image import (
+    bilateral_filter_depth,
+    compute_normals,
+    resample_bilinear,
+    resample_nearest,
+    rgb_to_intensity,
+)
+from bundlefusion_tpu_torch.ops.sift import SiftKeypoints
+from bundlefusion_tpu_torch.utils import dataclass_from_numpy
+
+
+@dataclass
+class DenseCache:
+    """Downsampled per-frame geometry for dense verify / dense BA."""
+
+    depth: torch.Tensor       # [F, h, w]
+    campos: torch.Tensor      # [F, h, w, 3]
+    normal: torch.Tensor      # [F, h, w, 3]
+    intensity: torch.Tensor   # [F, h, w]
+
+    @property
+    def capacity(self) -> int:
+        return self.depth.shape[0]
+
+
+def create_dense_cache(capacity: int, h: int, w: int, device) -> DenseCache:
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    return DenseCache(
+        depth=full((capacity, h, w), torch.nan),
+        campos=full((capacity, h, w, 3), torch.nan),
+        normal=full((capacity, h, w, 3), torch.nan),
+        intensity=full((capacity, h, w), 0.0),
+    )
+
+
+def dense_cache_from_numpy(arrays: dict, device) -> DenseCache:
+    """A cache holding the given arrays (keys: the field names)."""
+    dtypes = dict.fromkeys(("depth", "campos", "normal", "intensity"), torch.float32)
+    return dataclass_from_numpy(DenseCache, arrays, dtypes, device)
+
+
+def make_cache_frame(depth, color, intr_small: CameraIntrinsics,
+                     sigma_d: float = 1.0, sigma_r: float = 0.05):
+    """One cache entry from (integration-res) depth + color, mirroring
+    ``CUDACache::storeFrame``: bilateral-filter depth -> downsample ->
+    camera-space positions -> normals -> intensity."""
+    h, w = intr_small.height, intr_small.width
+    d = bilateral_filter_depth(depth, sigma_d, sigma_r)
+    d_small = resample_nearest(d, h, w)
+    campos = unproject(d_small, intr_small)
+    normal = compute_normals(campos)
+    inten = resample_bilinear(rgb_to_intensity(color), h, w)
+    return d_small, campos, normal, inten
+
+
+def store_cache_frame(cache: DenseCache, slot: int, depth, color, intr_small) -> DenseCache:
+    """Compute and write one cache entry into ``slot`` (in place)."""
+    d, cp, n, i = make_cache_frame(depth, color, intr_small)
+    cache.depth[slot] = d
+    cache.campos[slot] = cp
+    cache.normal[slot] = n
+    cache.intensity[slot] = i
+    return cache
+
+
+def copy_cache_frame(dst: DenseCache, dst_slot: int, src: DenseCache, src_slot: int) -> DenseCache:
+    """``CUDACache::copyCacheFrameFrom`` (submap frame 0 -> keyframe cache),
+    in place on ``dst``."""
+    for f in fields(DenseCache):
+        getattr(dst, f.name)[dst_slot] = getattr(src, f.name)[src_slot]
+    return dst
 
 
 @dataclass
@@ -75,3 +156,66 @@ def store_frame(store: FrameStore, slot: int, depth, color) -> FrameStore:
     """Encode one frame into ``slot`` (in place) and return the store."""
     put_frame(store, slot, *encode_frame(depth, color))
     return store
+
+
+@dataclass
+class KeyframeStore:
+    """Fixed-capacity keypoint/descriptor store over frames
+    (SIFTImageManager's per-image arrays, structure-of-arrays form)."""
+
+    pos: torch.Tensor          # [F, K, 2]
+    scale: torch.Tensor        # [F, K]
+    depth: torch.Tensor        # [F, K]
+    response: torch.Tensor     # [F, K]
+    valid: torch.Tensor        # [F, K] bool
+    desc: torch.Tensor         # [F, K, 128] bfloat16 (halves the footprint)
+    frame_valid: torch.Tensor  # [F] bool: frame participates in matching
+
+    @property
+    def capacity(self) -> int:
+        return self.pos.shape[0]
+
+    @property
+    def keys_per_frame(self) -> int:
+        return self.pos.shape[1]
+
+
+_KEY_DTYPES = {"pos": torch.float32, "scale": torch.float32, "depth": torch.float32,
+               "response": torch.float32, "valid": torch.bool, "desc": torch.bfloat16,
+               "frame_valid": torch.bool}
+
+
+def create_keyframe_store(capacity: int, keys_per_frame: int, device) -> KeyframeStore:
+    shapes = {"pos": (keys_per_frame, 2), "desc": (keys_per_frame, 128), "frame_valid": ()}
+    return KeyframeStore(**{
+        name: torch.zeros((capacity, *shapes.get(name, (keys_per_frame,))), dtype=dt,
+                          device=device)
+        for name, dt in _KEY_DTYPES.items()
+    })
+
+
+def keyframe_store_from_numpy(arrays: dict, device) -> KeyframeStore:
+    """A store holding the given arrays (keys: the field names). Descriptors
+    arrive as float32 and are rounded to bfloat16, to nearest even."""
+    return dataclass_from_numpy(KeyframeStore, arrays, _KEY_DTYPES, device)
+
+
+def store_keypoints(store: KeyframeStore, slot: int, kp: SiftKeypoints) -> KeyframeStore:
+    """Insert a detection result (possibly fewer keys than the store's
+    width; the rest of the slot is cleared) in place."""
+    k = kp.pos.shape[0]
+    for name in ("pos", "scale", "depth", "response", "valid", "desc"):
+        row = getattr(store, name)[slot]
+        row[:k] = getattr(kp, name)     # desc: cast to bfloat16 by the copy
+        if k < row.shape[0]:
+            row[k:] = 0
+    store.frame_valid[slot] = kp.valid.any()
+    return store
+
+
+def backproject_keys(pos, depth, intr: CameraIntrinsics):
+    """Keypoint pixel+depth -> camera-space 3D (the reference back-projects
+    via colorIntrinsicsInv in ``getKeySourceAndTargetPoints``)."""
+    x = (pos[..., 0] - intr.cx) / intr.fx * depth
+    y = (pos[..., 1] - intr.cy) / intr.fy * depth
+    return torch.stack([x, y, depth], -1)

@@ -1,21 +1,34 @@
-"""Online BundleFusion engine: the fusion half of ``process_frame``.
+"""Online BundleFusion engine: the per-frame path.
 
-Port of the reconstruction half of ``bundlefusion_tpu/pipeline/online.py``:
-the wire decode and frame archive, the fused TSDF dispatch with its
-re-integration budget (``DepthSensing.cpp: reintegrate()`` then
-``integrate()``), garbage collection, the per-frame splat render, the
-re-integration drain of ``finish()`` and mesh extraction. The frontend and
-the solver (``frame_step``'s matching, ``submap_step``) are not ported yet,
-so this class has no ``process_frame`` / ``finish``; the engine is driven
-through the same private methods, in the same order, as the JAX engine.
+Port of the per-frame half of ``bundlefusion_tpu/pipeline/online.py``:
+
+- ``_frame_step``: wire decode and frame archive, SIFT detect / describe,
+  keypoint and dense-cache stores, matching against the submap's frames, the
+  Kabsch -> surface-area -> dense-verify cascade, the correspondence store
+  and the chained pose (the reference's ``Bundler::matchAndFilter`` +
+  ``computeCurrentSiftTransform``);
+- the fused TSDF dispatch with its re-integration budget
+  (``DepthSensing.cpp: reintegrate()`` then ``integrate()``), garbage
+  collection, the per-frame splat render, the re-integration drain of
+  ``finish()`` and mesh extraction;
+- ``_rollover_local``: the submap window's rollover.
+
+Not ported yet: the solver, ``submap_step`` (local and global bundle
+adjustment, keyframe fusion into the global graph), retirement and
+revalidation. So this class has no ``process_frame`` / ``finish`` yet; it
+is driven through the same private methods, in the same order, as the JAX
+engine's ``process_frame`` calls them, and its poses are the chained SIFT
+estimates, not optimized ones.
 
 The JAX engine fuses each phase into one jitted program and lags results
 by a frame to hide TPU dispatch latency; here every step runs eagerly on
-the table's device and the table is updated in place.
+the engine's device and all state is updated in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
@@ -30,13 +43,35 @@ from bundlefusion_tpu_torch.ops.image import (
     resample_nearest,
     rgb_to_intensity,
 )
+from bundlefusion_tpu_torch.ops.filters import DenseVerifyParams
+from bundlefusion_tpu_torch.ops.sift import SiftConfig, detect_and_describe
 from bundlefusion_tpu_torch.pipeline.frames import (
+    DenseCache,
     FrameStore,
+    KeyframeStore,
+    copy_cache_frame,
+    create_dense_cache,
     create_frame_store,
+    create_keyframe_store,
     decode_frame,
+    dense_cache_from_numpy,
     encode_frame,
+    keyframe_store_from_numpy,
     load_frames,
     put_frame,
+    store_cache_frame,
+    store_keypoints,
+)
+from bundlefusion_tpu_torch.pipeline.frontend import (
+    FrontendParams,
+    add_to_residuals,
+    chained_sift_transform,
+    match_and_filter,
+)
+from bundlefusion_tpu_torch.solver.residuals import (
+    CorrStore,
+    corr_store_from_numpy,
+    create_corr_store,
 )
 from bundlefusion_tpu_torch.pipeline.trajectory import TrajectoryManager
 from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops
@@ -49,8 +84,35 @@ from bundlefusion_tpu_torch.tsdf.table import (
     create_table,
     garbage_collect,
 )
+from bundlefusion_tpu_torch.utils import owned_tensor
+from bundlefusion_tpu_torch.utils.timing import TimingLog
 
 REINT_ROWS = 5  # max re-integration rows per frame (2 ops each, budget 10)
+
+
+@dataclass
+class LocalState:
+    """Device-resident per-submap state (the reference's ``m_local`` Bundler:
+    SIFTImageManager arrays + CUDACache + EntryJ store + relative poses)."""
+
+    keys: KeyframeStore     # [S] keypoint store
+    cache: DenseCache       # [S] dense cache
+    corrs: CorrStore        # intra-submap EntryJ store
+    rel: torch.Tensor       # [S, 4, 4] frame -> submap-anchor transforms
+    valid: torch.Tensor     # [S] bool per-frame tracking validity
+
+
+def local_state_from_numpy(arrays: dict, device) -> LocalState:
+    """A ``LocalState`` from nested dicts of numpy arrays with the field
+    names: ``keys`` / ``cache`` / ``corrs`` as their own constructors take
+    them, ``rel`` [S, 4, 4] and ``valid`` [S]."""
+    return LocalState(
+        keys=keyframe_store_from_numpy(arrays["keys"], device),
+        cache=dense_cache_from_numpy(arrays["cache"], device),
+        corrs=corr_store_from_numpy(arrays["corrs"], device),
+        rel=owned_tensor(arrays["rel"], torch.float32, device),
+        valid=owned_tensor(arrays["valid"], torch.bool, device),
+    )
 
 
 def preprocess_frame(depth, color, sift_hw, int_hw):
@@ -69,7 +131,10 @@ def preprocess_frame(depth, color, sift_hw, int_hw):
 
 
 class BundleFusion:
-    """The engine's fusion half: archive, TSDF dispatch, render, mesh."""
+    """The engine's per-frame path: ``_frame_step`` (pose from SIFT matches
+    within the submap window), TSDF dispatch, render, mesh. There is no
+    ``process_frame`` / ``finish`` yet: they need ``submap_step`` and the
+    solver, which are not ported."""
 
     def __init__(
         self,
@@ -82,8 +147,9 @@ class BundleFusion:
         device=None,
     ):
         """Same signature as the JAX engine plus the ``device`` the state
-        lives on (default: the card if there is one). ``sift_cfg`` is kept
-        for the frontend; a multi-device ``mesh`` is not supported yet."""
+        lives on: the CUDA card unless the caller names another (with no
+        card and no ``device`` this raises). A multi-device ``mesh`` is not
+        supported yet."""
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
         if app.streaming_enabled:
@@ -91,10 +157,18 @@ class BundleFusion:
         self.device = torch.device(device) if device is not None else default_device()
         self.app = app
         self.bundling = bundling
-        self.sift_cfg = sift_cfg
         self.intr_input = intr_input
         self.intr_sift = intr_input.scaled(bundling.width_sift, bundling.height_sift)
         self.intr_int = intr_input.scaled(app.integration_width, app.integration_height)
+        self.intr_cache = intr_input.scaled(
+            bundling.downsampled_width, bundling.downsampled_height
+        )
+        self.sift_cfg = sift_cfg or SiftConfig(
+            target_keys=bundling.feature_count_threshold,
+            min_scale=bundling.min_key_scale,
+            depth_min=app.sensor_depth_min,
+            depth_max=app.sensor_depth_max,
+        )
         self.S = bundling.submap_size + 1  # +1: one-frame overlap
         self.G = max_keyframes or bundling.max_num_images
 
@@ -110,6 +184,36 @@ class BundleFusion:
         )
         self.table = create_table(app.hash_key_capacity, app.hash_num_sdf_blocks, self.device)
         self.vis_cap = app.visible_blocks_cap
+
+        dense = DenseVerifyParams(
+            dist_thresh=bundling.proj_corr_dist_thres,
+            normal_thresh=bundling.proj_corr_normal_thres,
+            err_thresh=bundling.verify_sift_err_thresh,
+            corr_thresh=bundling.verify_sift_corr_thresh,
+            depth_min=app.sensor_depth_min,
+            depth_max=app.sensor_depth_max,
+        )
+        self.frontend_local = FrontendParams(
+            sift_match_thresh=bundling.sift_match_thresh,
+            sift_match_ratio=bundling.sift_match_ratio_max_local,
+            num_raw_matches=bundling.max_matches_per_image_pair_raw,
+            max_filtered=bundling.max_matches_per_image_pair_filtered,
+            min_num_matches=bundling.min_num_matches_local,
+            max_kabsch_res2=bundling.max_kabsch_residual2,
+            surf_area_thresh=bundling.surf_area_pca_thresh,
+            dense=dense,
+        )
+        self.frontend_global = dataclasses.replace(
+            self.frontend_local,
+            sift_match_ratio=bundling.sift_match_ratio_max_global,
+            min_num_matches=bundling.min_num_matches_global,
+        )
+
+        # ---- device-resident state ----
+        self.local = self._fresh_local()
+        # the current submap's anchor pose; stays on the device
+        self.submap_base = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.timing = TimingLog()
 
         # device-resident frame archive for re-integration
         sub_len = self.S - 1
@@ -135,6 +239,72 @@ class BundleFusion:
             depth_max=app.render_depth_max,
             visible_cap=min(self.vis_cap, 8192),
         )
+
+    # ------------------------------------------------------------------
+    def _fresh_local(self) -> LocalState:
+        S, dev = self.S, self.device
+        return LocalState(
+            keys=create_keyframe_store(S, self.sift_cfg.target_keys, dev),
+            cache=create_dense_cache(S, self.intr_cache.height, self.intr_cache.width, dev),
+            corrs=create_corr_store(self.bundling.max_local_corr, dev),
+            rel=torch.eye(4, dtype=torch.float32, device=dev).repeat(S, 1, 1),
+            valid=torch.zeros((S,), dtype=torch.bool, device=dev),
+        )
+
+    def _rollover_local(self) -> None:
+        """The window rollover at a submap boundary: the overlap frame (slot
+        S-1: keys, cache, validity) becomes slot 0 of a fresh window with
+        identity relative poses and an empty correspondence store."""
+        old, new = self.local, self._fresh_local()
+        last = self.S - 1
+        copy_cache_frame(new.cache, 0, old.cache, last)
+        for f in dataclasses.fields(KeyframeStore):
+            getattr(new.keys, f.name)[0] = getattr(old.keys, f.name)[last]
+        new.valid[0] = old.valid[last]
+        self.local = new
+
+    def _frame_step(self, depth_u16, color_u8, cur_slot: int, store_slot: int):
+        """One frame: archive -> detect -> store -> match/filter -> chain,
+        on ``self.local``, ``self.store`` and ``self.submap_base``.
+
+        ``cur_slot`` is the frame's position in the submap window,
+        ``store_slot`` its slot in the frame archive. Returns (T_world
+        [4, 4], valid bool []) as tensors on the device; nothing is read
+        back here. TSDF work happens in the separate ``_tsdf_dispatch``.
+        """
+        loc, log = self.local, self.timing
+        with log.stage("time_sensor_process"):
+            intensity_sift, depth_sift, depth_int, color_int = self._archive_frame(
+                depth_u16, color_u8, store_slot)
+        kp = detect_and_describe(intensity_sift, depth_sift, self.sift_cfg, timing=log)
+        with log.stage("time_store"):
+            store_keypoints(loc.keys, cur_slot, kp)
+            store_cache_frame(loc.cache, cur_slot, depth_int, color_int, self.intr_cache)
+
+        if cur_slot > 0:
+            mf = match_and_filter(cur_slot, loc.keys, loc.cache, self.intr_sift,
+                                  self.intr_cache, self.frontend_local, timing=log)
+            with log.stage("time_misc"):
+                add_to_residuals(loc.corrs, mf, cur_slot,
+                                 torch.arange(self.S, dtype=torch.int32, device=self.device))
+                T_chain, found, _ = chained_sift_transform(mf, loc.rel)
+                # nothing found: hold the previous frame's pose
+                T_rel = torch.where(found, T_chain, loc.rel[cur_slot - 1])
+                valid = found
+        else:
+            T_rel = torch.eye(4, dtype=torch.float32, device=self.device)
+            valid = torch.ones((), dtype=torch.bool, device=self.device)
+        loc.rel[cur_slot] = T_rel
+        loc.valid[cur_slot] = valid
+        return self.submap_base @ T_rel, valid
+
+    def _read_pose(self, T_world: torch.Tensor, valid: torch.Tensor):
+        """The frame's one device -> host copy: 17 floats, the pose and the
+        validity flag together. The TSDF dispatch needs ``valid`` on the
+        host (its op signs are host lists) and the trajectory bookkeeping
+        needs the pose. Returns (T_world [4, 4] numpy, valid bool)."""
+        packed = torch.cat([T_world.reshape(16), valid.to(torch.float32).reshape(1)]).cpu()
+        return packed[:16].reshape(4, 4).numpy(), bool(packed[16] > 0.5)
 
     # ------------------------------------------------------------------
     def _apply_tsdf_ops(self, depths, colors, poses, signs, img_of_op):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA card.
 
-Runs the port's fusion half (``bundlefusion_tpu_torch``) at the engine's
-default, full-width configuration (``AppConfig()``: 640x480 input, 320x240
-integration, 1 cm voxels, 200 064 payload rows, 262 144 keys):
+Runs the port's per-frame path (``bundlefusion_tpu_torch``) at the engine's
+default, full-width configuration (``AppConfig()`` / ``BundlingConfig()``:
+640x480 input and SIFT, 320x240 integration, 1 cm voxels, 200 064 payload
+rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
+80x60 dense cache):
 
 1. build: compile every CUDA kernel from the sources in this checkout;
 2. kernels: hold each of the three kernels of the fused TSDF op (image
@@ -17,10 +19,27 @@ integration, 1 cm voxels, 200 064 payload rows, 262 144 keys):
    queue and extract the mesh. The op is held against its plain version
    again at the engine's first 1-op and first 11-op dispatch;
 4. profile: 20 more frames of the same loop under ``torch.profiler`` for the
-   card's busy share.
+   card's busy share;
+5. frontend: the same 40 wire frames through the whole per-frame path in
+   the order ``process_frame`` has it, with the engine estimating its own
+   poses: ``_frame_step`` (archive, SIFT, stores, matching, the Kabsch ->
+   surface-area -> dense-verify cascade, correspondences, chained pose),
+   one read-back of pose and validity, the TSDF dispatch, bookkeeping, the
+   render; at every 10th frame the window rolls over and the chained pose
+   becomes the new window's base. Run once with one wait per frame (frame
+   times, checks), once more with a wait around every stage (stage times;
+   the validity flags must repeat), then 5 frames of ``_frame_step`` under
+   the profiler (launches per frame, busy share) and 2 with a trace and an
+   op counter per stage (launches and dispatched ops by stage). It fails
+   unless all 40
+   frames are valid, the chained trajectory's ATE RMSE is under 0.10 m,
+   the render at the last pose is within 2 voxels of the true depth, the
+   table's invariants hold and no allocation failed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
-``{"slice": {...}}`` line, and last ``{"ok": true, "device": {...}}``. In
+``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, and last
+``{"ok": true, "device": {...}}``. ``launches`` in the kernels line counts
+the slice phase, ``launches_frontend`` the frontend phase's first run. In
 the kernels line every time is at 11 ops (``_1op``: at 1 op). ``kernel_ms``
 is the kernel's own device time from the profiler's trace, launches back to
 back (``kernel_ms_cold``: the payload rewritten before each launch, so the
@@ -51,12 +70,15 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 N_FRAMES = 40
 PUSH_AFTER = (10, 20, 30)
 SDF_ATOL = 1e-6   # sdf / colour: float32 rounding of the division; weight exact
 REPS = 5
 PROFILE_FRAMES = 20
+FRONTEND_PROFILE_FRAMES = 5
+ATE_MAX_M = 0.10
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 ROW_BYTES = 5 * 512 * 4     # sdf + weight + 3 colour channels of one payload row
@@ -528,11 +550,314 @@ def phase_slice(dev, seq, noisy, gt, app):
     }
 
 
+class _OpCounter(TorchDispatchMode):
+    """Counts the torch ops dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+class _StageCounts:
+    """Stands in for the engine's ``TimingLog``: every stage of
+    ``_frame_step`` runs under its own profiler trace and op counter, and
+    the log keeps per stage the CUDA kernels and copies the card ran, their
+    device time and the torch ops the host dispatched. Starting a trace
+    costs tens of ms, so this is for a frame or two, not for timing."""
+
+    enabled = True
+
+    def __init__(self):
+        self.totals = {}
+
+    def stage(self, attr, ft=None):
+        return _CountedStage(self.totals.setdefault(
+            attr, {"device_ops": 0, "device_ms": 0.0, "dispatched_ops": 0}))
+
+
+class _CountedStage:
+    def __init__(self, total):
+        self.total = total
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        _sync()
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.ops = _OpCounter()
+        self.prof.__enter__()
+        self.ops.__enter__()
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+
+        self.ops.__exit__(*exc)
+        _sync()
+        self.prof.__exit__(*exc)
+        evs = [e for e in self.prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        self.total["device_ops"] += sum(e.count for e in evs)
+        self.total["device_ms"] += sum(e.self_device_time_total for e in evs) / 1e3
+        self.total["dispatched_ops"] += self.ops.n
+        return False
+
+
+class _FrontendProbe:
+    """Wraps the matcher and ``match_and_filter`` as the engine calls them
+    and keeps, per frame and on the device, the number of raw matches per
+    active pair, of filtered matches per valid pair and of valid pairs, and
+    the greedy filter's count of host reads.
+    Nothing is read back until :meth:`summary`."""
+
+    def __init__(self):
+        from bundlefusion_tpu_torch.pipeline import frontend, online
+
+        self.modules = (frontend, online)
+        self.inner_match = frontend.match_current_against_previous
+        self.inner_mf = online.match_and_filter
+        self.raw, self.filtered, self.pairs, self.reads = [], [], [], []
+
+    def __enter__(self):
+        frontend, online = self.modules
+
+        def match(*args, **kw):
+            m = self.inner_match(*args, **kw)
+            self.raw.append(m.valid.sum(-1).float().mean())
+            return m
+
+        def mf(*args, **kw):
+            out = self.inner_mf(*args, **kw)
+            n_pairs = out["pair_valid"].sum()
+            self.pairs.append(n_pairs)
+            self.reads.append(out["kabsch_host_reads"])
+            self.filtered.append(out["num_inliers"].sum() / torch.clamp(n_pairs, min=1))
+            return out
+
+        frontend.match_current_against_previous = match
+        online.match_and_filter = mf
+        return self
+
+    def __exit__(self, *exc):
+        frontend, online = self.modules
+        frontend.match_current_against_previous = self.inner_match
+        online.match_and_filter = self.inner_mf
+        return False
+
+    def summary(self):
+        pairs = torch.stack(self.pairs).cpu().numpy()
+        return {
+            "raw_matches_per_pair_mean": float(torch.stack(self.raw).mean()),
+            "filtered_matches_per_valid_pair_mean": float(torch.stack(self.filtered).mean()),
+            "valid_pairs_per_frame_mean": float(pairs.mean()),
+            "valid_pairs_per_frame_min": int(pairs.min()),
+            "kabsch_host_reads_per_frame_mean": statistics.fmean(self.reads),
+            "kabsch_host_reads_per_frame_max": max(self.reads),
+        }
+
+
+def _drive_frontend_frame(eng, seq, f, stage):
+    """Frame ``f`` of the whole per-frame path, in the order ``process_frame``
+    has it, each stage run through ``stage(name, fn)``. Frame k * (S-1) is
+    slot S-1 of window k-1; after it the window rolls over and the frame's
+    chained pose becomes the new window's base (where the solver's pose
+    will go). Returns (cur_slot, valid)."""
+    sub_len = eng.S - 1
+    slot = f % sub_len
+    boundary = f > 0 and slot == 0
+    cur_slot = sub_len if boundary else slot
+    store_slot = eng._store_slot(f)
+    eng.frame_idx = f
+    T_dev, valid_dev = stage("frame_step", lambda: eng._frame_step(
+        seq["depth"][f], seq["color"][f], cur_slot, store_slot))
+    T_world, valid = stage("readback", lambda: eng._read_pose(T_dev, valid_dev))
+    stage("tsdf", lambda: eng._tsdf_dispatch(store_slot, T_world, valid))
+    eng._record_frame(f, T_world, valid)
+    stage("render", lambda: eng._render_frame(f, T_world))
+    if boundary:
+        eng._rollover_local()
+        eng.submap_base = T_dev
+    return cur_slot, valid
+
+
+def _stage_ms(log, coarse):
+    """Median ms per stage: the engine's ``TimingLog`` and the coarse
+    stages timed here."""
+    out = {k: v * 1e3 for k, v in log.medians().items()}
+    out.update({k: statistics.median(v) * 1e3 for k, v in coarse.items()})
+    return out
+
+
+def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_FRAMES):
+    """The whole per-frame path with the engine's own poses; see the module
+    docstring. ``bundling`` / ``sift_cfg`` default to the engine's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.config import BundlingConfig
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.tsdf.table import check_invariants
+    from bundlefusion_tpu_torch.utils.metrics import evaluate_ate_rmse
+
+    bundling = bundling or BundlingConfig()
+
+    def engine():
+        return BundleFusion(seq["intrinsics"], app, bundling, sift_cfg=sift_cfg,
+                            max_keyframes=n_frames // bundling.submap_size + 2, device=dev)
+
+    def drive(eng, stage_syncs):
+        """All frames; per-frame wall ms (one wait at the frame's end) and
+        the coarse stages' seconds. With ``stage_syncs`` every stage, the
+        engine's own included, is closed by a wait for the card."""
+        eng.timing.sync = _sync if stage_syncs else None
+        coarse = {}
+
+        def stage(name, fn):
+            if stage_syncs:
+                _sync()
+            t0 = time.perf_counter()
+            r = fn()
+            if stage_syncs:
+                _sync()
+            coarse.setdefault(name, []).append(time.perf_counter() - t0)
+            return r
+
+        frame_ms, valid, keys = [], [], []
+        for f in range(n_frames):
+            _sync()
+            t0 = time.perf_counter()
+            cur_slot, v = _drive_frontend_frame(eng, seq, f, stage)
+            _sync()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            valid.append(v)
+            # after a rollover the frame sits in slot 0 of the new window
+            keys.append(eng.local.keys.valid[0 if cur_slot == eng.S - 1 else cur_slot].sum())
+        return frame_ms, valid, coarse, torch.stack(keys).cpu().numpy()
+
+    # ---- run A: one wait per frame; the checks ----
+    eng = engine()
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms, valid, coarse_a, keys = drive(eng, stage_syncs=False)
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_ms = _stage_ms(eng.timing, coarse_a)
+
+    ate, n_ate = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
+    inv = check_invariants(eng.table)
+    fails = int(eng.table.num_alloc_failures)
+    d = eng.last_render["depth"].cpu().numpy()
+    step = seq["depth"].shape[1] // d.shape[0]
+    gt_d = seq["depth"][n_frames - 1][::step, ::step].astype(np.float32) * 1e-3
+    gt_d[gt_d == 0] = np.nan
+    both = np.isfinite(d) & np.isfinite(gt_d)
+    med_err = float(np.median(np.abs(d[both] - gt_d[both]))) if both.any() else float("inf")
+    live_corrs = int(eng.local.corrs.valid_mask().sum())
+    live_blocks = int((eng.table.slot_keys[:-1] != EMPTY_KEY).sum())
+
+    if not all(valid):
+        raise AssertionError(f"frames lost: {[f for f, v in enumerate(valid) if not v]}")
+    if any(n == 0 for n in launches.values()) or set(launches) != set(kernels.SOURCES):
+        raise AssertionError(f"a TSDF kernel was never launched on the frontend path: {launches}")
+    if not (n_ate == n_frames and ate < ATE_MAX_M):
+        raise AssertionError(f"chained ATE RMSE {ate} m over {n_ate} frames (limit {ATE_MAX_M})")
+    if any(inv.values()) or fails:
+        raise AssertionError(f"table invariants {inv}, alloc failures {fails}")
+    if not med_err < 2 * eng.tsdf_params.voxel_size:
+        raise AssertionError(f"render median |depth - GT| {med_err} m >= 2 voxels")
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- run B: a wait around every stage; the flags must repeat ----
+    eng = engine()
+    with _FrontendProbe() as probe:
+        frame_ms_b, valid_b, coarse_b, _ = drive(eng, stage_syncs=True)
+    if valid_b != valid:
+        raise AssertionError(f"validity flags differ between two runs: {valid} vs {valid_b}")
+    stats = probe.summary()
+    if stats["valid_pairs_per_frame_min"] < 1:
+        raise AssertionError("a frame after the first had no valid pair")
+    stage_ms = _stage_ms(eng.timing, coarse_b)
+    ate_b, _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- run C: _frame_step alone under the profiler ----
+    eng = engine()
+    first = min(n_frames - FRONTEND_PROFILE_FRAMES - 2, bundling.submap_size + 1)
+    for f in range(first):
+        _drive_frontend_frame(eng, seq, f, lambda _name, fn: fn())
+    _sync()
+    sub_len = eng.S - 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(first, first + FRONTEND_PROFILE_FRAMES):
+            eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len, eng._store_slot(f))
+        _sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    if not device_ms > 0:
+        raise AssertionError("the profiler's trace holds no device time")
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    n_prof = FRONTEND_PROFILE_FRAMES
+
+    # two more frames, each stage under its own trace and op counter
+    eng.timing = counts = _StageCounts()
+    n_counted = 2
+    for f in range(first + n_prof, first + n_prof + n_counted):
+        eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len, eng._store_slot(f))
+    per_stage = {k: {name: v / n_counted for name, v in tot.items()}
+                 for k, tot in sorted(counts.totals.items())}
+    del eng
+    torch.cuda.empty_cache()
+
+    return {
+        "frames": n_frames,
+        "all_valid": True,
+        "ate_rmse_m": ate,
+        "ate_rmse_m_second_run": ate_b,
+        "render_median_abs_err_m": med_err,
+        "alloc_failures": fails,
+        "launches": launches,
+        "frame_ms_median": statistics.median(frame_ms),
+        "frame_ms_max": max(frame_ms[1:]),
+        "frame_ms_median_with_stage_syncs": statistics.median(frame_ms_b),
+        "stage_ms_median": stage_ms,
+        "stage_host_ms_median": host_ms,
+        "keys_per_frame_mean": float(keys.mean()),
+        "keys_per_frame_min": int(keys.min()),
+        **stats,
+        "live_corrs_last_window": live_corrs,
+        "live_blocks": live_blocks,
+        "peak_mem_gb": peak_gb,
+        "frame_step_profile": {
+            "frames": n_prof,
+            "first_frame": first,
+            "cuda_kernels_per_frame": sum(e.count for e in evs) / n_prof,
+            "dispatched_ops_per_frame": sum(v["dispatched_ops"] for v in per_stage.values()),
+            "wall_ms_per_frame": wall_ms / n_prof,
+            "device_ms_per_frame": device_ms / n_prof,
+            "device_busy_share": device_ms / wall_ms,
+            "top_device_ms_per_frame": [[e.key[:80], e.self_device_time_total / 1e3 / n_prof,
+                                         e.count / n_prof] for e in evs[:10]],
+            "per_stage": per_stage,
+        },
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
               file=sys.stderr)
         return 1
+    import bundlefusion_tpu_torch  # noqa: F401  (turns TF32 off before any product)
     from bundlefusion_tpu_torch.config import AppConfig
     from bundlefusion_tpu_torch.io.synthetic import (
         default_intrinsics,
@@ -553,6 +878,9 @@ def main() -> int:
     kern = phase_kernels(dev, seq, noisy, gt, app)
     sl = phase_slice(dev, seq, noisy, gt, app)
     prof = phase_profile(dev, seq, noisy, gt, app)
+    t0 = time.perf_counter()
+    fe = phase_frontend(dev, seq, gt, app)
+    fe["phase_s"] = time.perf_counter() - t0
     main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
 
     def entry(name, sub, extra_err=()):
@@ -564,6 +892,7 @@ def main() -> int:
             "source": f"bundlefusion_tpu_torch/kernels/{name}.cu",
             "replaces": REPLACES[name],
             "launches": sl["launches"][name],
+            "launches_frontend": fe["launches"][name],
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -588,6 +917,7 @@ def main() -> int:
     print(gpu)
     print(json.dumps(kernels_line))
     print(json.dumps({"slice": sl}))
+    print(json.dumps({"frontend": fe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,10 @@ CUDA toolkit, without the repository's JAX-side ``conftest.py``:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+The last two tests drive ``frame_step`` on the card: against the CPU run on
+three frames (``valid`` equal, ``T_world`` within 2e-3), and twice on the
+card (``valid`` equal, ``T_world`` within 1e-5).
+
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
 bitwise; the cull a superset of the rows the plain full sweep changes; the
@@ -202,3 +206,46 @@ def test_image_index_out_of_range_raises_on_card(setup):
     base, D, C, P, intr = setup
     with pytest.raises(ValueError):
         apply_ops.apply_tsdf_ops(base.clone(), D, C, P, [1.0, 1.0, 1.0], [0, 3, 1], intr, PARAMS)
+
+
+def _frame_step_run(device, n=3):
+    """``n`` frames of the 160x120 synthetic orbit through ``_frame_step``
+    at the small configuration: per frame (T_world, valid) on the host."""
+    from bundlefusion_tpu_torch import AppConfig, BundlingConfig, SiftConfig
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+
+    intr = default_intrinsics(160, 120)
+    seq = make_sequence_wire(n, intr=intr)
+    eng = BundleFusion(
+        intr,
+        AppConfig(integration_width=80, integration_height=60, sdf_voxel_size=0.03,
+                  sdf_truncation=0.09, hash_num_sdf_blocks=8192, hash_key_capacity=16384,
+                  visible_blocks_cap=8192),
+        BundlingConfig(width_sift=160, height_sift=120, submap_size=8, downsampled_width=40,
+                       downsampled_height=30, max_local_corr=2048, max_global_corr=8192,
+                       min_num_matches_local=4, min_num_matches_global=4),
+        sift_cfg=SiftConfig(num_octaves=3, target_keys=96, max_candidates_per_octave=256,
+                            min_scale=1.0, dog_thresh=0.004),
+        max_keyframes=4, device=device)
+    out = []
+    for f in range(n):
+        T, v = eng._frame_step(seq["depth"][f], seq["color"][f], f, f)
+        assert T.device.type == torch.device(device).type
+        out.append(eng._read_pose(T, v))
+    return out
+
+
+def test_frame_step_on_card_matches_cpu(setup):
+    card, cpu = _frame_step_run("cuda"), _frame_step_run("cpu")
+    assert [v for _, v in card] == [v for _, v in cpu] == [True] * 3
+    for (Tc, _), (Th, _) in zip(card, cpu):
+        np.testing.assert_allclose(Tc, Th, rtol=0, atol=2e-3)
+    assert np.linalg.norm(card[-1][0][:3, 3]) > 0.01
+
+
+def test_frame_step_twice_on_card(setup):
+    a, b = _frame_step_run("cuda"), _frame_step_run("cuda")
+    assert [v for _, v in a] == [v for _, v in b]
+    for (Ta, _), (Tb, _) in zip(a, b):
+        np.testing.assert_allclose(Ta, Tb, rtol=0, atol=1e-5)

@@ -20,7 +20,21 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bundlefusion_tpu"))
 print(len(names), bad)
+missing = [m for m in EXPECTED if "bundlefusion_tpu_torch." + m not in names]
+assert not missing, missing
 """
+
+# every module the port holds: a new one is added here with its port
+MODULES = [
+    "config", "kernels",
+    "geometry.camera", "geometry.kabsch", "geometry.lie",
+    "io.ply", "io.synthetic",
+    "ops.filters", "ops.image", "ops.matching", "ops.resample", "ops.sift",
+    "pipeline.frames", "pipeline.frontend", "pipeline.online", "pipeline.trajectory",
+    "solver.residuals",
+    "tsdf.apply_ops", "tsdf.integrate", "tsdf.marching_cubes", "tsdf.splat", "tsdf.table",
+    "utils.metrics", "utils.timing",
+]
 
 
 def _run(args, **kw):
@@ -30,11 +44,28 @@ def _run(args, **kw):
 
 
 def test_port_never_imports_jax():
-    out = _run(["-c", _IMPORT_ALL])
+    out = _run(["-c", f"EXPECTED = {MODULES!r}\n" + _IMPORT_ALL])
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 16
+    assert int(n_modules) >= len(MODULES)
     assert bad.strip() == "[]", bad
+
+
+def test_port_sources_name_no_jax_import():
+    """No source line of the port or of chip_smoke.py imports JAX or the
+    JAX package, not even inside a function that the walk above never
+    calls."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bundlefusion_tpu)(\.|\s|$)")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "bundlefusion_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > len(MODULES)
+    for path in files:
+        with open(path) as fh:
+            hits = [line for line in fh if pat.match(line)]
+        assert not hits, (path, hits)
 
 
 def test_chip_smoke_refuses_without_cuda():
