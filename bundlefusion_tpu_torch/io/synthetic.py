@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
+from bundlefusion_tpu_torch.geometry.lie import pose_to_matrix
 
 
 @dataclass
@@ -224,3 +225,42 @@ def make_sequence_wire(n_frames: int, intr: CameraIntrinsics | None = None,
         depths[i] = np.clip(d * 1000.0 + 0.5, 0, 65535).astype(np.uint16)
         colors[i] = np.clip(c.cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
     return {"depth": depths, "color": colors, "poses": poses, "intrinsics": intr}
+
+
+def ring_pose_graph(n_frames: int, corrs_per_pair: int = 16, reach: int = 3, seed: int = 0):
+    """A pose graph for the solver at width: a slow arc of ``n_frames``
+    poses, every frame tied to its ``reach`` predecessors by
+    ``corrs_per_pair`` exact 3D-3D correspondences of random world points.
+
+    Returns (gt_poses [N, 6] float32 as [omega, t], arrays): ``arrays`` holds
+    the correspondence store's fields as numpy (``img_i`` > ``img_j``, sorted
+    by reach then frame), as ``solver.residuals.corr_store_from_numpy`` takes
+    them."""
+    rng = np.random.default_rng(seed)
+    gt_poses = np.zeros((n_frames, 6), np.float32)
+    t = np.arange(n_frames, dtype=np.float32)
+    gt_poses[:, 1] = 0.002 * t                     # slow yaw
+    gt_poses[:, 3] = 0.05 * np.sin(0.05 * t)
+    gt_poses[:, 4] = 0.02 * t / n_frames
+    gt_poses[:, 5] = 0.05 * np.cos(0.05 * t)
+    mats = pose_to_matrix(torch.from_numpy(gt_poses)).numpy()
+
+    pairs = np.concatenate([np.stack([np.arange(d, n_frames), np.arange(d, n_frames) - d], -1)
+                            for d in range(1, reach + 1)])          # [P, 2] (i > j)
+    world = rng.uniform(-1, 1, size=(len(pairs), corrs_per_pair, 3)).astype(np.float32)
+    world[..., 2] += 2.0
+    Ti_inv = np.linalg.inv(mats[pairs[:, 0]])
+    Tj_inv = np.linalg.inv(mats[pairs[:, 1]])
+    p_i = np.einsum("pab,pcb->pca", Ti_inv[:, :3, :3], world) + Ti_inv[:, None, :3, 3]
+    p_j = np.einsum("pab,pcb->pca", Tj_inv[:, :3, :3], world) + Tj_inv[:, None, :3, 3]
+    C = len(pairs) * corrs_per_pair
+    arrays = {
+        "img_i": np.repeat(pairs[:, 0], corrs_per_pair).astype(np.int32),
+        "img_j": np.repeat(pairs[:, 1], corrs_per_pair).astype(np.int32),
+        "p_i": p_i.reshape(C, 3).astype(np.float32),
+        "p_j": p_j.reshape(C, 3).astype(np.float32),
+        "key_i": np.zeros(C, np.int32),
+        "key_j": np.zeros(C, np.int32),
+        "count": np.asarray(C, np.int32),
+    }
+    return gt_poses, arrays

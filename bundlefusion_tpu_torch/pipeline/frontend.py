@@ -31,6 +31,7 @@ from bundlefusion_tpu_torch.ops.filters import (
 from bundlefusion_tpu_torch.ops.matching import match_current_against_previous
 from bundlefusion_tpu_torch.pipeline.frames import DenseCache, KeyframeStore, backproject_keys
 from bundlefusion_tpu_torch.solver.residuals import CorrStore, append_corrs
+from bundlefusion_tpu_torch.utils import segment_sum_sorted
 from bundlefusion_tpu_torch.utils.timing import stage
 
 
@@ -219,9 +220,7 @@ def fuse_keyframe(keys: KeyframeStore, corrs: CorrStore, local_world, frame0_slo
       keys survive, nearest-depth first, equal depths by lower key id.
 
     ``local_world`` [S, 4, 4] is the solved submap trajectory. Returns a
-    dict of fused key arrays (pos/depth/response/scale/valid/desc). The
-    position sums are float scatter-adds: on the card their last bits can
-    differ from run to run.
+    dict of fused key arrays (pos/depth/response/scale/valid/desc).
     """
     S, K = keys.valid.shape
     NK = S * K
@@ -254,11 +253,14 @@ def fuse_keyframe(keys: KeyframeStore, corrs: CorrStore, local_world, frame0_slo
     labels = labels[:NK]
 
     # ---- per-track position average over low-error members ----
+    # (an ordered sum over the corrs sorted by label, in store order within
+    # a label: a scatter-add would round differently from run to run on the
+    # card)
     lab_e = torch.where(low, labels[ki], NK)                         # == labels[kj]
-    sum_pos = torch.zeros((NK + 1, 3), dtype=torch.float32, device=dev)
-    sum_pos.index_add_(0, lab_e, wi + wj)
-    cnt = torch.zeros((NK + 1,), dtype=torch.float32, device=dev)
-    cnt.index_add_(0, lab_e, torch.where(low, 2.0, 0.0))
+    by_label = torch.argsort(lab_e, stable=True)
+    contrib = torch.cat([wi + wj, torch.where(low, 2.0, 0.0)[:, None]], -1)
+    sums = segment_sum_sorted(contrib[by_label], lab_e[by_label], NK + 1)
+    sum_pos, cnt = sums[:, :3], sums[:, 3]
     avg = sum_pos[:NK] / torch.clamp(cnt[:NK, None], min=1.0)
 
     # ---- roots -> fused keys ----

@@ -1,33 +1,43 @@
-"""Online BundleFusion engine: the per-frame path.
+"""Online BundleFusion engine: the full per-frame loop.
 
-Port of the per-frame half of ``bundlefusion_tpu/pipeline/online.py``:
+Port of ``bundlefusion_tpu/pipeline/online.py`` (single device):
 
-- ``_frame_step``: wire decode and frame archive, SIFT detect / describe,
-  keypoint and dense-cache stores, matching against the submap's frames, the
-  Kabsch -> surface-area -> dense-verify cascade, the correspondence store
-  and the chained pose (the reference's ``Bundler::matchAndFilter`` +
-  ``computeCurrentSiftTransform``);
-- the fused TSDF dispatch with its re-integration budget
-  (``DepthSensing.cpp: reintegrate()`` then ``integrate()``), garbage
-  collection, the per-frame splat render, the re-integration drain of
-  ``finish()`` and mesh extraction;
-- ``_rollover_local``: the submap window's rollover.
+- ``process_frame``: ``_frame_step`` (wire decode and frame archive, SIFT
+  detect / describe, keypoint and dense-cache stores, matching against the
+  submap's frames, the Kabsch -> surface-area -> dense-verify cascade, the
+  correspondence store and the chained pose), the fused TSDF dispatch with
+  its re-integration budget (``DepthSensing.cpp: reintegrate()`` then
+  ``integrate()``), the per-frame splat render and, every ``submap_size``
+  frames, the submap boundary;
+- ``_submap_step``: local bundle adjustment of the submap (sparse + dense
+  Gauss-Newton), dense verification of the solved submap, keyframe fusion,
+  global matching of the new keyframe against all earlier ones, the global
+  solve with up to ``max_prune_rounds`` max-residual pruning rounds,
+  comprehensive frame invalidation, the window's rollover, and one packed
+  read-back of everything the host scheduler consumes;
+- the host scheduler: retirement of a boundary's pack (per-frame
+  bookkeeping, keyframe validity, the retry list, the optimized complete
+  trajectory pushed to the re-integration scheduler), revalidation of lost
+  keyframes, behaviour past keyframe capacity;
+- ``finish`` (trailing partial submap, extra global solves with the dense
+  term at the end, the re-integration drain), ``warmup``, ``upload_frame``,
+  ``trajectory``, ``extract_mesh``.
 
-Not ported yet: the solver, ``submap_step`` (local and global bundle
-adjustment, keyframe fusion into the global graph), retirement and
-revalidation. So this class has no ``process_frame`` / ``finish`` yet; it
-is driven through the same private methods, in the same order, as the JAX
-engine's ``process_frame`` calls them, and its poses are the chained SIFT
-estimates, not optimized ones.
+Not ported: multi-device meshes, host paging of TSDF blocks, ``render``
+(raycast), ``save`` / ``load``, and the serialized device-time replay
+(``profile_every``): give ``timing`` a ``sync`` callable instead.
 
-The JAX engine fuses each phase into one jitted program and lags results
-by a frame to hide TPU dispatch latency; here every step runs eagerly on
-the engine's device and all state is updated in place.
+The JAX engine fuses each phase into one jitted program, donates its state
+and retires a boundary's results one submap late to hide TPU dispatch
+latency. Here every step runs eagerly on the engine's device, state is
+updated in place, and a boundary's pack is read back at the end of the frame
+that dispatched it. What the host scheduler ends up with is the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -37,13 +47,14 @@ import torch
 from bundlefusion_tpu_torch import default_device
 from bundlefusion_tpu_torch.config import AppConfig, BundlingConfig
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
+from bundlefusion_tpu_torch.geometry.lie import matrix_to_pose, pose_inverse, pose_to_matrix
 from bundlefusion_tpu_torch.ops.image import (
     erode_depth,
     resample_bilinear,
     resample_nearest,
     rgb_to_intensity,
 )
-from bundlefusion_tpu_torch.ops.filters import DenseVerifyParams
+from bundlefusion_tpu_torch.ops.filters import DenseVerifyParams, dense_verify
 from bundlefusion_tpu_torch.ops.sift import SiftConfig, detect_and_describe
 from bundlefusion_tpu_torch.pipeline.frames import (
     DenseCache,
@@ -66,12 +77,29 @@ from bundlefusion_tpu_torch.pipeline.frontend import (
     FrontendParams,
     add_to_residuals,
     chained_sift_transform,
+    fuse_keyframe,
     match_and_filter,
+)
+from bundlefusion_tpu_torch.solver.dense_term import DenseTermParams
+from bundlefusion_tpu_torch.solver.gn_pcg import (
+    SolverParams,
+    apply_pair_kill_sorted,
+    apply_pair_kill_store,
+    corr_counts_per_frame_sorted,
+    guided_kill_mask,
+    invalidate_pair_sorted,
+    max_residual_sorted,
+    presort_corrs,
+    solve_bundle,
+    solve_sparse,
+    solve_sparse_presorted,
 )
 from bundlefusion_tpu_torch.solver.residuals import (
     CorrStore,
+    compact_corrs,
     corr_store_from_numpy,
     create_corr_store,
+    invalidate_image_pair,
 )
 from bundlefusion_tpu_torch.pipeline.trajectory import TrajectoryManager
 from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops
@@ -84,8 +112,8 @@ from bundlefusion_tpu_torch.tsdf.table import (
     create_table,
     garbage_collect,
 )
-from bundlefusion_tpu_torch.utils import owned_tensor
-from bundlefusion_tpu_torch.utils.timing import TimingLog
+from bundlefusion_tpu_torch.utils import host_reads, owned_tensor, read_host
+from bundlefusion_tpu_torch.utils.timing import TimingLog, stage
 
 REINT_ROWS = 5  # max re-integration rows per frame (2 ops each, budget 10)
 
@@ -115,6 +143,48 @@ def local_state_from_numpy(arrays: dict, device) -> LocalState:
     )
 
 
+@dataclass
+class GlobalState:
+    """Device-resident keyframe-graph state (the reference's ``m_global``
+    Bundler + per-submap solved trajectories for composition)."""
+
+    keys: KeyframeStore        # [G] fused keyframe keypoints
+    cache: DenseCache          # [G] keyframe dense cache
+    corrs: CorrStore           # global EntryJ store
+    poses: torch.Tensor        # [G, 6] keyframe poses (Lie [omega, t])
+    local_traj: torch.Tensor   # [G, S, 4, 4] solved submap trajectories
+    local_valid: torch.Tensor  # [G, S] bool per-frame validity after local solve
+
+
+def global_state_from_numpy(arrays: dict, device) -> GlobalState:
+    """A ``GlobalState`` from nested dicts of numpy arrays with the field
+    names: ``keys`` / ``cache`` / ``corrs`` as their own constructors take
+    them, ``poses`` [G, 6], ``local_traj`` [G, S, 4, 4], ``local_valid``
+    [G, S]."""
+    return GlobalState(
+        keys=keyframe_store_from_numpy(arrays["keys"], device),
+        cache=dense_cache_from_numpy(arrays["cache"], device),
+        corrs=corr_store_from_numpy(arrays["corrs"], device),
+        poses=owned_tensor(arrays["poses"], torch.float32, device),
+        local_traj=owned_tensor(arrays["local_traj"], torch.float32, device),
+        local_valid=owned_tensor(arrays["local_valid"], torch.bool, device),
+    )
+
+
+def _verify_local_pairs(local_world, lv, cache: DenseCache, intr, vp):
+    """Dense-verify all adjacent submap frame pairs (``VerifyTrajectoryCU``).
+    Returns (n_checked, n_failed) 0-d tensors."""
+    T_rel = pose_inverse(local_world[1:]) @ local_world[:-1]
+    keep, _, _ = dense_verify(
+        T_rel,
+        cache.depth[:-1], cache.campos[:-1], cache.normal[:-1],
+        cache.depth[1:], cache.campos[1:], cache.normal[1:],
+        intr, vp,
+    )
+    checked = lv[:-1] & lv[1:]
+    return checked.sum(), (checked & ~keep).sum()
+
+
 def preprocess_frame(depth, color, sift_hw, int_hw):
     """Input-res depth/color -> (intensity_sift, depth_sift, depth_int,
     color_int): erode depth twice, resample (``CUDAImageManager::process``
@@ -131,10 +201,7 @@ def preprocess_frame(depth, color, sift_hw, int_hw):
 
 
 class BundleFusion:
-    """The engine's per-frame path: ``_frame_step`` (pose from SIFT matches
-    within the submap window), TSDF dispatch, render, mesh. There is no
-    ``process_frame`` / ``finish`` yet: they need ``submap_step`` and the
-    solver, which are not ported."""
+    """The engine. Feed RGB-D frames; read back poses / renders / mesh."""
 
     def __init__(
         self,
@@ -209,8 +276,46 @@ class BundleFusion:
             min_num_matches=bundling.min_num_matches_global,
         )
 
+        self.local_solver = SolverParams(
+            num_gn=bundling.num_local_non_lin_iterations,
+            num_pcg=bundling.num_local_lin_iterations,
+            pcg_early_out=bundling.pcg_early_out,
+            gn_early_out_delta=bundling.gn_early_out_delta,
+            max_pairs=self.S * (self.S + 1) // 2 + 1,
+        )
+        self.global_solver = SolverParams(
+            num_gn=bundling.num_global_non_lin_iterations,
+            num_pcg=bundling.num_global_lin_iterations,
+            pcg_early_out=bundling.pcg_early_out,
+            gn_early_out_delta=bundling.gn_early_out_delta,
+            max_pairs=min(bundling.solver_max_pairs, self.G * (self.G + 1) // 2 + 1),
+            max_working_corrs=bundling.solver_max_working_corrs,
+        )
+        self.dense_term_params = DenseTermParams(
+            dist_thresh=bundling.dense_dist_thresh,
+            normal_thresh=bundling.dense_normal_thresh,
+            color_thresh=bundling.dense_color_thresh,
+            color_gradient_min=bundling.dense_color_gradient_min,
+            depth_min=bundling.dense_depth_min,
+            depth_max=bundling.dense_depth_max,
+            overlap_subsample=bundling.dense_overlap_check_subsample_factor,
+            overlap_min_hits=bundling.dense_overlap_min_hits,
+            min_corr_per_pair=bundling.min_dense_corr_for_pair,
+            max_pairs=64,
+        )
+        self.verify_params = dataclasses.replace(
+            dense,
+            err_thresh=bundling.verify_opt_err_thresh,
+            corr_thresh=bundling.verify_opt_corr_thresh,
+        )
+
         # ---- device-resident state ----
         self.local = self._fresh_local()
+        self.glob = self._fresh_global()
+        self.keyframe_valid = np.zeros(self.G, bool)
+        # device twin of keyframe_valid: what the boundary computes with
+        self.kf_valid_dev = torch.zeros((self.G,), dtype=torch.bool, device=self.device)
+        self.num_keyframes = 0
         # the current submap's anchor pose; stays on the device
         self.submap_base = torch.eye(4, dtype=torch.float32, device=self.device)
         self.timing = TimingLog()
@@ -222,11 +327,37 @@ class BundleFusion:
             self.frame_cap, self.intr_int.height, self.intr_int.width, self.device
         )
 
+        # packed per-submap readback layout (see ``_submap_step``)
+        NF = self.G * sub_len
+        self._off_lv = self.S * 16
+        self._off_kf = self.S * 17
+        self._off_flags = self.S * 17 + self.G
+        self._off_comp = self._off_flags + 3
+        self._off_ok = self._off_comp + NF * 16
+
         self.frame_idx = 0
         self.frame_valid: List[bool] = []
         self.sift_world: List[np.ndarray] = []     # per-frame chained estimate
         self.complete_traj: List[np.ndarray] = []  # per-frame optimized 4x4 (nan invalid)
+        self._recorded_upto = 0                    # host bookkeeping high-water mark
+        self._pending_submaps: List[tuple] = []    # FIFO of (g, pack) awaiting retirement
+        # frame index of the current window's anchor + the buffer slot it
+        # lives in (0 after a rollover; sub_len past keyframe capacity,
+        # where boundaries stop rolling the buffer over)
+        self._window_base = 0
+        self._anchor_slot = 0
         self.traj_manager = TrajectoryManager(app.top_n_active, app.min_pose_dist_sqrt)
+        # relocalization retry list (reference SIFTImageManager retry list +
+        # Bundler::tryRevalidation): persistent and uncapped, oldest first,
+        # one attempt per submap; the attempt counters are telemetry only
+        self.retry_list: List[int] = []
+        self.retry_attempts: dict = {}
+        self.lost_count = 0
+        # pair-cap overflow accounting, surfaced per retirement
+        self.pairs_dropped_total = 0
+        self.pairs_dropped_max = 0
+        # per boundary: {"g", "host_reads", "prune_rounds"}
+        self.boundary_stats: List[dict] = []
         # re-integration accounting: frames that dispatched the rows path +
         # total de/re-integration ops
         self.reint_frames = 0
@@ -249,6 +380,17 @@ class BundleFusion:
             corrs=create_corr_store(self.bundling.max_local_corr, dev),
             rel=torch.eye(4, dtype=torch.float32, device=dev).repeat(S, 1, 1),
             valid=torch.zeros((S,), dtype=torch.bool, device=dev),
+        )
+
+    def _fresh_global(self) -> GlobalState:
+        G, S, dev = self.G, self.S, self.device
+        return GlobalState(
+            keys=create_keyframe_store(G, self.bundling.max_num_keys_per_image, dev),
+            cache=create_dense_cache(G, self.intr_cache.height, self.intr_cache.width, dev),
+            corrs=create_corr_store(self.bundling.max_global_corr, dev),
+            poses=torch.zeros((G, 6), dtype=torch.float32, device=dev),
+            local_traj=torch.zeros((G, S, 4, 4), dtype=torch.float32, device=dev),
+            local_valid=torch.zeros((G, S), dtype=torch.bool, device=dev),
         )
 
     def _rollover_local(self) -> None:
@@ -341,20 +483,37 @@ class BundleFusion:
             color = np.clip(color * 255.0 + 0.5, 0, 255).astype(np.uint8)
         return depth, color
 
+    def upload_frame(self, depth, color):
+        """Start the host -> device upload of one input frame: compaction to
+        the wire format, a pinned host buffer and a non-blocking copy, so
+        frame i + 1 can upload while frame i computes (the analog of the
+        reference's sensor thread). Returns a handle to pass to
+        :meth:`process_frame` as ``depth`` (with ``color=None``)."""
+        depth_u16, color_u8 = self._to_wire(depth, color)
+        d = torch.from_numpy(np.ascontiguousarray(depth_u16).view(np.int16))
+        c = torch.from_numpy(np.ascontiguousarray(color_u8))
+        if self.device.type == "cuda":
+            d = d.pin_memory().to(self.device, non_blocking=True)
+            c = c.pin_memory().to(self.device, non_blocking=True)
+        return d, c
+
     def _store_slot(self, f: int) -> int:
         """Frame archive slot: frames beyond capacity land in the scratch
         slot (they become non-re-integrable)."""
         return f if f < self.frame_cap else self.frame_cap
 
     def _archive_frame(self, depth_u16, color_u8, store_slot: int):
-        """The archive step of ``frame_step``: decode the wire frame, erode
+        """The archive step of ``frame_step``: decode the wire frame (numpy
+        arrays, or the handle's tensors from :meth:`upload_frame`), erode
         and resample it, archive it at integration resolution, and return
         (intensity_sift, depth_sift, depth_int, color_int) with the
         integration-res images DECODED from the archive, so a later
         de-integration subtracts bitwise-identical contributions."""
-        dev = self.device
-        d_u16 = torch.as_tensor(np.asarray(depth_u16).astype(np.int32), device=dev)
-        c_u8 = torch.as_tensor(np.asarray(color_u8), device=dev)
+        if not isinstance(depth_u16, torch.Tensor):
+            depth_u16, color_u8 = self.upload_frame(depth_u16, color_u8)
+        # the depth codes travel as int16 (same bits)
+        d_u16 = depth_u16.to(device=self.device, dtype=torch.int32) & 0xFFFF
+        c_u8 = color_u8.to(self.device)
         depth = torch.where(d_u16 > 0, d_u16.to(torch.float32) * 1e-3, torch.nan)
         color = c_u8.to(torch.float32) * (1.0 / 255.0)
         intensity_sift, depth_sift, depth_int, color_int = preprocess_frame(
@@ -551,6 +710,463 @@ class BundleFusion:
             if not any(self.traj_manager.generate_update_lists()):
                 break
             self._tsdf_dispatch()
+
+    # ------------------------------------------------------------------
+    def _compose(self, gposes, kf_valid):
+        """complete[k * sub_len + r] = kf_world[k] @ local[k][r]
+        (``updateTrajectoryCU``: invalid -> nan). Returns ([G * sub_len, 4,
+        4], [G * sub_len] bool) on the device."""
+        sub_len = self.S - 1
+        kf_world = pose_to_matrix(gposes)
+        comp = torch.einsum("kij,ksjl->ksil", kf_world, self.glob.local_traj[:, :sub_len])
+        ok = kf_valid[:, None] & self.glob.local_valid[:, :sub_len]
+        comp = torch.where(ok[..., None, None], comp, torch.nan)
+        return comp.reshape(self.G * sub_len, 4, 4), ok.reshape(self.G * sub_len)
+
+    def _pack_tail(self) -> torch.Tensor:
+        """Tail pack for the trailing partial submap: [chained world S*16 |
+        frame valid S]."""
+        world = self.submap_base @ self.local.rel
+        return torch.cat([world.reshape(-1), self.local.valid.to(torch.float32)])
+
+    def _submap_step(self, g: int, last_world: torch.Tensor) -> torch.Tensor:
+        """Submap boundary: local solve -> verify -> fuse keyframe ->
+        global match -> global solve (+ max-residual pruning) -> rollover,
+        on ``self.local`` / ``self.glob`` / ``self.kf_valid_dev`` /
+        ``self.submap_base``.
+
+        Returns ``pack``, the flat float32 host-readback buffer [chained
+        world S*16 | frame valid S | kf_valid G | submap_ok, matched,
+        pairs_dropped | composed trajectory G*sub_len*16 | composed valid
+        G*sub_len]: everything the host scheduler consumes, fetched in one
+        transfer per submap."""
+        b, log, dev = self.bundling, self.timing, self.device
+        loc, glob, kf_valid = self.local, self.glob, self.kf_valid_dev
+        S, G = self.S, self.G
+        reads0, kabsch_reads, prune_rounds = host_reads["count"], 0, 0
+
+        with stage(log, "time_submap_local_solve"):
+            init = matrix_to_pose(loc.rel)
+            lv = loc.valid
+            if b.use_local_dense:
+                # sparse + dense depth term, dense weight ramp iter + 1
+                # (SBA.cpp:28-38)
+                poses, _ = solve_bundle(init, lv, loc.corrs, loc.cache, self.intr_cache,
+                                        self.local_solver, self.dense_term_params)
+            else:
+                poses, _ = solve_sparse(init, lv, loc.corrs, self.local_solver)
+            local_world = pose_to_matrix(poses)
+
+        submap_ok = lv[0] & (lv.sum() >= 2)
+        if b.use_local_verify:
+            # a solved submap failing dense verification is invalid
+            # (VerifyTrajectoryCU path, Bundler.cpp:259-273)
+            with stage(log, "time_submap_verify"):
+                n_checked, n_failed = _verify_local_pairs(local_world, lv, loc.cache,
+                                                          self.intr_cache, self.verify_params)
+                submap_ok = submap_ok & ((n_checked == 0) | (n_failed <= n_checked // 3))
+        glob.local_traj[g] = local_world
+        glob.local_valid[g] = lv & submap_ok
+
+        with stage(log, "time_submap_fuse"):
+            # fuse the keyframe from the solved submap's feature tracks
+            # (anchor frame 0; SIFTImageManager::fuseToGlobal)
+            gk = glob.keys
+            fused = fuse_keyframe(loc.keys, loc.corrs, local_world, 0, self.intr_sift,
+                                  gk.keys_per_frame)
+            for name in ("pos", "scale", "depth", "response", "valid", "desc"):
+                getattr(gk, name)[g] = fused[name]     # desc: cast to bfloat16 by the copy
+            gk.frame_valid[g] = submap_ok
+            copy_cache_frame(glob.cache, g, loc.cache, 0)
+            glob.poses[g] = matrix_to_pose(self.submap_base)
+            kf_valid[g] = submap_ok
+
+        matched = torch.ones((), dtype=torch.bool, device=dev)
+        pairs_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        if g > 0:
+            with stage(log, "time_submap_global_match"):
+                mf = match_and_filter(g, gk, glob.cache, self.intr_sift, self.intr_cache,
+                                      self.frontend_global)
+                kabsch_reads = mf["kabsch_host_reads"]
+                matched = mf["pair_valid"].any()
+                # an unmatched keyframe has no inliers: nothing is appended
+                add_to_residuals(glob.corrs, mf, g,
+                                 torch.arange(G, dtype=torch.int32, device=dev))
+                kf_valid[g] = kf_valid[g] & matched
+            ks = torch.arange(G, device=dev)
+            kv = kf_valid & (ks <= g)
+            prev_poses = glob.poses  # trajectory before this solve
+            with stage(log, "time_submap_global_solve"):
+                # ONE sort per boundary; the pruning rounds below only flip
+                # validity bits in the presorted working set
+                prob = presort_corrs(glob.corrs, G, self.global_solver)
+                sposes = solve_sparse_presorted(prev_poses, kv, prob, self.global_solver)
+                pairs_dropped = prob.sc.dropped
+
+            # residual pruning, several rounds per solve
+            # (SBA::removeMaxResidualCUDA, SBA.cpp:169-204: the reference
+            # prunes once per solve but solves every frame). A round that
+            # prunes nothing leaves the state as it is, so the loop ends.
+            with stage(log, "time_submap_prune"):
+                for _ in range(b.max_prune_rounds):
+                    mr, fa, fb = max_residual_sorted(sposes, prob)
+                    mr_h, fa_h, fb_h = read_host(torch.stack([mr, fa.to(mr.dtype),
+                                                              fb.to(mr.dtype)]))
+                    if not (mr_h > b.opt_max_res_thresh and fa_h >= 0 and fb_h >= 0):
+                        break
+                    prune_rounds += 1
+                    invalidate_image_pair(glob.corrs, int(fa_h), int(fb_h))
+                    prob = invalidate_pair_sorted(prob, int(fa_h), int(fb_h))
+                    if b.use_guided_remove:
+                        # NEW_GUIDED_REMOVE: when badly off, also remove
+                        # long-range pairs of the newest keyframe whose
+                        # residual is high now AND was > 1.5x higher under
+                        # the previous trajectory (a bad loop closure)
+                        killed = guided_kill_mask(sposes, prev_poses, prob, g, mr, G)
+                        apply_pair_kill_store(glob.corrs, killed, G)
+                        prob = apply_pair_kill_sorted(prob, killed, G)
+                    sposes = solve_sparse_presorted(prev_poses, kv, prob, self.global_solver)
+
+            # comprehensive frame invalidation: valid keyframes left without
+            # correspondences after pruning lose their pose
+            # (CheckForInvalidFramesCU); counts over the presorted working
+            # set, into which the prune kills are mirrored
+            if b.use_comprehensive_frame_invalidation:
+                counts = corr_counts_per_frame_sorted(prob, G)
+                kf_valid &= (counts > 0) | (ks == 0) | (ks > g)
+            glob.poses = sposes
+
+        with stage(log, "time_submap_pack"):
+            # the overlap frame's solved pose is the next window's base
+            kf_world_g = pose_to_matrix(glob.poses[g])
+            overlap_world = torch.where(submap_ok, kf_world_g @ local_world[S - 1], last_world)
+            world_chained = self.submap_base @ loc.rel
+            comp, comp_ok = self._compose(glob.poses, kf_valid)
+            pack = torch.cat([
+                world_chained.reshape(-1),
+                lv.to(torch.float32),
+                kf_valid.to(torch.float32),
+                torch.stack([submap_ok.to(torch.float32), matched.to(torch.float32),
+                             pairs_dropped.to(torch.float32)]),
+                comp.reshape(-1),
+                comp_ok.to(torch.float32),
+            ])
+            # rollover: the overlap frame becomes slot 0 of the fresh submap
+            self._rollover_local()
+            self.submap_base = overlap_world
+        self.boundary_stats.append({
+            "g": g, "prune_rounds": prune_rounds,
+            # + 1: the pack's read-back at retirement
+            "host_reads": host_reads["count"] - reads0 + kabsch_reads + 1,
+        })
+        return pack
+
+    # ------------------------------------------------------------------
+    def warmup(self) -> float:
+        """Build the CUDA kernels and run every path of the engine once,
+        before the first frame, against the engine's own still-empty state:
+        frame step, both TSDF variants, garbage collection, render, a submap
+        boundary with its global branch, the revalidation match, the
+        ``finish`` solves and the composition. What a timed run would
+        otherwise pay at its first frame or boundary (kernel builds, library
+        handles, first-call set-up) is paid here. A zero frame contributes no
+        TSDF blocks, no correspondences and no keyframe validity; the window
+        and the keyframe graph are replaced by fresh ones at the end, so the
+        state is a fresh engine's. Returns elapsed seconds."""
+        assert self.frame_idx == 0, "warmup() must run before the first frame"
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from bundlefusion_tpu_torch import kernels
+
+            kernels.build_all()
+        dev = self.device
+        h, w = self.intr_input.height, self.intr_input.width
+        T_dev, valid_dev = self._frame_step(np.zeros((h, w), np.uint16),
+                                            np.zeros((h, w, 3), np.uint8), 0, 0)
+        T_world, valid = self._read_pose(T_dev, valid_dev)
+        # zero depth -> no candidate blocks: the TSDF / gc warmups change nothing
+        self._tsdf_fast(0, T_world, valid)
+        packed = np.zeros((REINT_ROWS, 34), np.float32)
+        packed[:, 2:18] = packed[:, 18:34] = np.eye(4, dtype=np.float32).reshape(-1)
+        self._tsdf_rows(packed, 0, T_world, valid)
+        garbage_collect(self.table)
+        self._render(self.table, T_world)
+        self._submap_step(1, T_dev)
+        # revalidation path: match + append against an all-invalid store
+        glob = self.glob
+        glob.keys.frame_valid[0] = True
+        mf = match_and_filter(0, glob.keys, glob.cache, self.intr_sift, self.intr_cache,
+                              self.frontend_global)
+        add_to_residuals(glob.corrs, mf, 0, torch.arange(self.G, dtype=torch.int32, device=dev))
+        # finish() path: standalone global solves + composition
+        kfv = self.kf_valid_dev
+        solve_sparse(glob.poses, kfv, glob.corrs, self.global_solver)
+        if self.bundling.use_global_dense_at_end:
+            self._solve_dense_at_end(kfv)
+        self._compose(glob.poses, kfv)
+        self._pack_tail()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.local = self._fresh_local()
+        self.glob = self._fresh_global()
+        self.kf_valid_dev.zero_()
+        self.submap_base = torch.eye(4, dtype=torch.float32, device=dev)
+        self.timing = TimingLog(self.timing.enabled, self.timing.sync)
+        self.boundary_stats.clear()
+        self.last_render = None
+        return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    def process_frame(self, depth, color=None):
+        """Process one input-resolution RGB-D frame.
+
+        Args:
+          depth: [H, W] float32 meters (or uint16 mm) at input resolution,
+            or the handle returned by :meth:`upload_frame` (then ``color``
+            must be None).
+          color: [H, W, 3] float32 in [0, 1] (or uint8).
+
+        Returns dict: ``pose`` (4x4, cam-to-world estimate), ``valid``, as
+        tensors on the engine's device.
+        """
+        f = self.frame_idx
+        ft = self.timing.new_frame(f)
+        # submap slot (with one-frame overlap): frame k*(S-1) is slot S-1 of
+        # submap k-1 AND slot 0 of submap k
+        sub_len = self.S - 1
+        slot = f % sub_len
+        is_boundary = f > 0 and slot == 0
+        cur_slot = sub_len if is_boundary else slot  # position in current buffer
+
+        with self.timing.stage("time_solve", ft):
+            self._retire_submap()
+            if is_boundary and self.num_keyframes >= self.G:
+                # past keyframe capacity: no rollover will happen, and this
+                # frame's frame step will overwrite the anchor slot; record
+                # the finishing window's chained poses first
+                self._record_window_tail(f)
+
+        with self.timing.stage("time_frame_step", ft):
+            depth_dev, color_dev = depth if color is None else self.upload_frame(depth, color)
+            store_slot = self._store_slot(f)
+            T_world_dev, valid_dev = self._frame_step(depth_dev, color_dev, cur_slot, store_slot)
+            # the TSDF dispatch's op signs are host lists: the frame's one read
+            T_world, valid = self._read_pose(T_world_dev, valid_dev)
+
+        # fused TSDF dispatch: re-integration budget + current frame's fuse
+        # in one kernel sweep (reference order: reintegrate() then
+        # integrate(), DepthSensing.cpp:854-902 + :1047)
+        with self.timing.stage("time_re_integrate", ft):
+            if self.app.integration_enabled:
+                self._tsdf_dispatch(store_slot, T_world, valid)
+
+        if self.render_every and f % self.render_every == 0:
+            with self.timing.stage("time_visualize", ft):
+                self._render_frame(f, T_world)
+
+        if is_boundary:
+            with self.timing.stage("time_submap_step", ft):
+                dispatched = self._dispatch_submap(T_world_dev)
+            self._window_base = f
+            self._anchor_slot = 0 if dispatched else sub_len
+
+        self.frame_idx += 1
+        # the boundary's pack is read back at once (the JAX engine waits
+        # for a later frame to hide the transfer)
+        with self.timing.stage("time_solve", ft):
+            self._retire_submap()
+        return {"pose": T_world_dev, "valid": valid_dev}
+
+    # ------------------------------------------------------------------
+    def _flush_pending(self):
+        """Retire everything in flight (end of stream / before evaluation)."""
+        self._retire_submap()
+        if self._recorded_upto < self.frame_idx:
+            # trailing frames of the current (partial) window
+            self._record_window_tail(self.frame_idx)
+
+    def _record_window_tail(self, end_frame: int):
+        """Record frames [recorded_upto, end_frame) from the live local
+        buffer (one small transfer). Handles both the normal trailing
+        partial submap and the past-capacity windows where boundaries stop
+        rolling the buffer over (the anchor then sits at slot ``sub_len``,
+        not slot 0)."""
+        if self._recorded_upto >= end_frame:
+            return
+        S = self.S
+        sub_len = S - 1
+        tail = self._pack_tail().cpu().numpy()
+        world = tail[: S * 16].reshape(S, 4, 4)
+        lv = tail[S * 16:] > 0.5
+        base = self._window_base
+        for f in range(self._recorded_upto, end_frame):
+            s = self._anchor_slot if f == base else f - base
+            assert 0 <= s <= sub_len, (f, base, self._anchor_slot)
+            self._record_frame(f, world[s], bool(lv[s]))
+        self._recorded_upto = end_frame
+
+    def _dispatch_submap(self, last_world_dev) -> bool:
+        """Local solve -> keyframe fusion -> global match -> global solve ->
+        rollover (``OnlineBundler::process``); the pack waits in
+        ``_pending_submaps`` for :meth:`_retire_submap`. Returns False once
+        keyframe capacity is reached."""
+        g = self.num_keyframes  # submap index == keyframe index
+        if g >= self.G:
+            return False  # capacity reached (reference caps s_maxNumImages)
+
+        # relocalization attempt BEFORE the solve so revalidated corrs join
+        # this submap's global solve (tryRevalidation, Bundler.cpp:306-352)
+        self._try_revalidation()
+
+        # periodic corr-store compaction: residual pruning / frame
+        # invalidation only MARK corrs dead, so long runs leak append
+        # capacity; reclaiming every 64 submaps keeps the cursor bounded by
+        # the live count
+        if g > 0 and g % 64 == 0:
+            compact_corrs(self.glob.corrs)
+
+        pack = self._submap_step(g, last_world_dev)
+        self.num_keyframes += 1
+        self._pending_submaps.append((g, pack))
+        return True
+
+    def _retire_submap(self):
+        """Consume the packed readbacks of dispatched submaps, in order."""
+        while self._pending_submaps:
+            g, pack = self._pending_submaps.pop(0)
+            self._retire_one(g, pack.cpu().numpy())
+
+    def _retire_one(self, g: int, pack: np.ndarray):
+        """Per-frame host bookkeeping, keyframe validity, the lost-keyframe
+        retry queue and the optimized complete trajectory from one pack."""
+        S = self.S
+        sub_len = S - 1
+
+        world = pack[: self._off_lv].reshape(S, 4, 4)
+        lv = pack[self._off_lv: self._off_kf] > 0.5
+        prev_kf_valid = self.keyframe_valid
+        self.keyframe_valid = pack[self._off_kf: self._off_flags] > 0.5
+        matched = pack[self._off_flags + 1] > 0.5
+        # silent-cap accounting: pairs beyond solver_max_pairs were dropped
+        # from this global solve (the reference silently truncates too)
+        dropped = int(pack[self._off_flags + 2])
+        if dropped > 0:
+            self.pairs_dropped_total += dropped
+            self.pairs_dropped_max = max(self.pairs_dropped_max, dropped)
+        # keyframes that LOST validity during this solve (residual pruning +
+        # comprehensive frame invalidation) queue for relocalization retries
+        for k in np.where(prev_kf_valid[: g + 1] & ~self.keyframe_valid[: g + 1])[0]:
+            k = int(k)
+            if k not in self.retry_list:
+                self.retry_list.append(k)
+        comp = pack[self._off_comp: self._off_ok].reshape(-1, 4, 4)
+        comp_ok = pack[self._off_ok:] > 0.5
+
+        # per-frame bookkeeping for the frames this submap covers
+        base = g * sub_len
+        last = min(base + sub_len, self.frame_idx - 1)
+        for f in range(self._recorded_upto, last + 1):
+            self._record_frame(f, world[f - base], bool(lv[f - base]))
+        self._recorded_upto = max(self._recorded_upto, last + 1)
+
+        if g > 0 and not matched:
+            # keyframe not matched: tracking lost for this submap -> queue
+            # for relocalization retries
+            self.lost_count += 1
+            self.retry_list.append(g)
+
+        # optimized trajectory for all solved submaps (invalid -> nan)
+        m = min(len(self.complete_traj), (g + 1) * sub_len, comp.shape[0])
+        nanT = np.full((4, 4), np.nan, np.float32)
+        for i in range(m):
+            self.complete_traj[i] = comp[i].astype(np.float32) if comp_ok[i] else nanT
+        self._push_optimized_to_manager()
+
+    def _try_revalidation(self):
+        """One relocalization attempt per submap: re-match the oldest lost
+        keyframe against all valid keyframes (``tryRevalidation``,
+        Bundler.cpp:306-352). Success restores the keyframe and appends its
+        correspondences; failure re-queues (persistent, uncapped)."""
+        if not self.retry_list:
+            return
+        k = self.retry_list.pop(0)
+        self.retry_attempts[k] = self.retry_attempts.get(k, 0) + 1
+        glob = self.glob
+        # temporarily mark the keyframe's stored features active for matching
+        glob.keys.frame_valid[k] = True
+        mf = match_and_filter(k, glob.keys, glob.cache, self.intr_sift, self.intr_cache,
+                              self.frontend_global)
+        # only pairs against currently-valid keyframes count
+        pair_valid = np.asarray(read_host(mf["pair_valid"]), bool) & self.keyframe_valid[: self.G]
+        if pair_valid.any():
+            add_to_residuals(glob.corrs, mf, k,
+                             torch.arange(self.G, dtype=torch.int32, device=self.device))
+            self.keyframe_valid[k] = True
+            self.kf_valid_dev[k] = True
+        else:
+            glob.keys.frame_valid[k] = False
+            self.retry_list.append(k)
+
+    def _update_complete_trajectory(self, n_solved: Optional[int] = None):
+        """complete[f] = keyframe_world[k] @ local[k][r], read back in one
+        transfer: used by ``finish`` after its extra solves (the per-frame
+        loop gets this from the boundary's pack). Only the frames of the
+        first ``n_solved`` submaps are overwritten; later frames keep the
+        chained estimate."""
+        if n_solved is None:
+            n_solved = self.num_keyframes
+        kfv = torch.as_tensor(self.keyframe_valid, device=self.device)
+        comp, ok = self._compose(self.glob.poses, kfv)
+        flat = torch.cat([comp.reshape(-1), ok.to(torch.float32)]).cpu().numpy()
+        n_comp = comp.shape[0]
+        comp, ok = flat[: n_comp * 16].reshape(-1, 4, 4), flat[n_comp * 16:] > 0.5
+        m = min(len(self.complete_traj), n_solved * (self.S - 1), n_comp)
+        nanT = np.full((4, 4), np.nan, np.float32)
+        for f in range(m):
+            self.complete_traj[f] = comp[f] if ok[f] else nanT
+        self._push_optimized_to_manager()
+
+    def _solve_dense_at_end(self, kv: torch.Tensor):
+        """The final global pass with dense depth weight 15 and the
+        photometric weight (USE_GLOBAL_DENSE_AT_END, OnlineBundler.cpp:177-189;
+        denseColor SBA.cpp:28-38). Returns the poses."""
+        with stage(self.timing, "time_finish_dense_solve"):
+            gposes, _ = solve_bundle(
+                self.glob.poses, kv, self.glob.corrs, self.glob.cache, self.intr_cache,
+                self.global_solver, self.dense_term_params,
+                dense_weights=[15.0] * self.global_solver.num_gn,
+                w_color=self.bundling.dense_color_at_end_weight,
+            )
+        return gposes
+
+    def finish(self, extra_solves: Optional[int] = None):
+        """End of sequence: solve the trailing partial submap, run extra
+        global solves and drain the re-integration queue
+        (``numSolveFramesBeforeExit``)."""
+        with stage(self.timing, "time_finish"):
+            self._flush_pending()
+            sub_len = self.S - 1
+            if self.frame_idx % sub_len != 1 and self.frame_idx > 0:
+                # trailing partial submap: the window is already sized; solve it
+                self._dispatch_submap(self._as_pose(self.sift_world[-1]))
+                self._retire_submap()
+            n_extra = (
+                extra_solves
+                if extra_solves is not None
+                else max(self.app.num_solve_frames_before_exit // 10, 1)
+            )
+            for it in range(n_extra):
+                if self.num_keyframes > 1:
+                    kv = self.keyframe_valid.copy()
+                    kv[self.num_keyframes:] = False
+                    kv = torch.as_tensor(kv, device=self.device)
+                    if self.bundling.use_global_dense_at_end and it == n_extra - 1:
+                        self.glob.poses = self._solve_dense_at_end(kv)
+                    else:
+                        self.glob.poses, _ = solve_sparse(self.glob.poses, kv, self.glob.corrs,
+                                                          self.global_solver)
+                self._update_complete_trajectory()
+                self._drain_reintegration()
 
     # ------------------------------------------------------------------
     def extract_mesh(self):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA card.
 
-Runs the port's per-frame path (``bundlefusion_tpu_torch``) at the engine's
+Runs the port's main path (``bundlefusion_tpu_torch``) at the engine's
 default, full-width configuration (``AppConfig()`` / ``BundlingConfig()``:
 640x480 input and SIFT, 320x240 integration, 1 cm voxels, 200 064 payload
 rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
@@ -34,12 +34,43 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    unless all 40
    frames are valid, the chained trajectory's ATE RMSE is under 0.10 m,
    the render at the last pose is within 2 voxels of the true depth, the
-   table's invariants hold and no allocation failed.
+   table's invariants hold and no allocation failed;
+6. engine: the same 40 wire frames through the public entry points only:
+   ``BundleFusion(intr, AppConfig(), BundlingConfig())`` with the keyframe
+   capacity of 1200 (a 7200 x 7200 reduced system, a 12 000-frame archive,
+   262 144 global correspondences), ``warmup()``, ``upload_frame`` +
+   ``process_frame`` (frame i + 1 uploads while frame i computes),
+   ``finish()``, ``trajectory()``, ``extract_mesh()``. Four runs: one as a
+   user calls it, with the op at the engine's first 1-op and first 11-op
+   dispatch held against its plain version (frame times, every check); one
+   with a wait around every stage (the boundary's split; the validity flags
+   must repeat, and the line says whether the trajectory repeats bit for
+   bit); one under a trace of the card alone (busy share over the run); one
+   with every boundary under a trace and an op counter of its own (launches,
+   device ms and dispatched ops per boundary, the kernels the boundaries
+   spend most on). It
+   fails unless all 40 frames are valid, the optimized trajectory's ATE RMSE
+   is under 0.10 m, 4 submaps were dispatched and at least 3 keyframes are
+   valid, a re-integration dispatch came out of the engine's own pose
+   updates and equals its plain version, all three kernels were launched,
+   the render at the last pose is within 2 voxels of the true depth, the
+   table's invariants hold, no allocation failed and the mesh has more than
+   10 000 triangles;
+7. solver at width: ``solve_sparse`` on a ring graph of 1200 poses (every
+   pose tied to its 3 predecessors by 16 correspondences, perturbed by
+   0.01) with the direct and with the PCG linear step, by CUDA events, and
+   the direct step's parts (sort, pair blocks, assembly, the LU alone
+   beside its float32 bound). Both must reach 1e-3 of the initial cost.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
-``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, and last
-``{"ok": true, "device": {...}}``. ``launches`` in the kernels line counts
-the slice phase, ``launches_frontend`` the frontend phase's first run. In
+``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
+{...}}`` line (with ``solver_at_width`` inside) and last ``{"ok": true,
+"device": {...}}``. ``launches`` in the kernels line counts the slice phase,
+``launches_frontend`` the frontend phase's first run, ``launches_engine``
+the engine phase's first run; the counts are set to 0 just before each. In
+the engine line ``host_reads_per_boundary`` counts the device -> host reads
+of each boundary (the pack's included), ``lu_zero_steps`` the direct solves
+that failed and became no update. In
 the kernels line every time is at 11 ops (``_1op``: at 1 op). ``kernel_ms``
 is the kernel's own device time from the profiler's trace, launches back to
 back (``kernel_ms_cold``: the payload rewritten before each launch, so the
@@ -114,6 +145,17 @@ def _compare(a, b) -> float:
     if not err <= SDF_ATOL:
         raise AssertionError(f"kernel and plain sdf/colour differ by {err}")
     return err
+
+
+def _depth_err(render_depth, seq, f):
+    """(median |rendered depth - true depth| in m, pixels compared) at frame ``f``."""
+    d = render_depth.cpu().numpy()
+    step = seq["depth"].shape[1] // d.shape[0]
+    gt_d = seq["depth"][f][::step, ::step].astype(np.float32) * 1e-3
+    gt_d[gt_d == 0] = np.nan
+    both = np.isfinite(d) & np.isfinite(gt_d)
+    err = float(np.median(np.abs(d[both] - gt_d[both]))) if both.any() else float("inf")
+    return err, int(both.sum())
 
 
 def _event_ms(fn) -> float:
@@ -507,12 +549,8 @@ def phase_slice(dev, seq, noisy, gt, app):
     inv = check_invariants(eng.table)
     fails = int(eng.table.num_alloc_failures)
     (verts, _), mesh_ms = timed(eng.extract_mesh)
-    render = eng._render(eng.table, gt[N_FRAMES - 1])
-    d = render["depth"].cpu().numpy()
-    gt_d = seq["depth"][N_FRAMES - 1][::2, ::2].astype(np.float32) * 1e-3
-    gt_d[gt_d == 0] = np.nan
-    both = np.isfinite(d) & np.isfinite(gt_d)
-    med_err = float(np.median(np.abs(d[both] - gt_d[both]))) if both.any() else float("inf")
+    med_err, hit = _depth_err(eng._render(eng.table, gt[N_FRAMES - 1])["depth"], seq,
+                              N_FRAMES - 1)
 
     if checker.dispatches == 0 or set(launches) != set(kernels.SOURCES) or any(
             n != checker.dispatches for n in launches.values()):
@@ -541,7 +579,7 @@ def phase_slice(dev, seq, noisy, gt, app):
         "mesh_triangles": int(len(verts)),
         "mesh_ms": mesh_ms,
         "render_median_abs_err_m": med_err,
-        "render_hit_pixels": int(both.sum()),
+        "render_hit_pixels": hit,
         "main_path_checks": checker.checked,
         "stage_ms_median": {k: (statistics.median(v) if v else None) for k, v in stages.items()},
         "stage_counts": {k: len(v) for k, v in stages.items()},
@@ -603,6 +641,11 @@ class _CountedStage:
         self.total["device_ops"] += sum(e.count for e in evs)
         self.total["device_ms"] += sum(e.self_device_time_total for e in evs) / 1e3
         self.total["dispatched_ops"] += self.ops.n
+        if "kernels" in self.total:     # by kernel name: [device ms, launches]
+            for e in evs:
+                ms_n = self.total["kernels"].setdefault(e.key[:80], [0.0, 0])
+                ms_n[0] += e.self_device_time_total / 1e3
+                ms_n[1] += e.count
         return False
 
 
@@ -751,12 +794,7 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
     ate, n_ate = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
     inv = check_invariants(eng.table)
     fails = int(eng.table.num_alloc_failures)
-    d = eng.last_render["depth"].cpu().numpy()
-    step = seq["depth"].shape[1] // d.shape[0]
-    gt_d = seq["depth"][n_frames - 1][::step, ::step].astype(np.float32) * 1e-3
-    gt_d[gt_d == 0] = np.nan
-    both = np.isfinite(d) & np.isfinite(gt_d)
-    med_err = float(np.median(np.abs(d[both] - gt_d[both]))) if both.any() else float("inf")
+    med_err, _ = _depth_err(eng.last_render["depth"], seq, n_frames - 1)
     live_corrs = int(eng.local.corrs.valid_mask().sum())
     live_blocks = int((eng.table.slot_keys[:-1] != EMPTY_KEY).sum())
 
@@ -852,6 +890,279 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
     }
 
 
+def phase_engine(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_FRAMES,
+                 max_keyframes=None):
+    """The whole engine through its public entry points; see the module
+    docstring. ``bundling`` / ``sift_cfg`` default to the engine's, and
+    ``max_keyframes`` to the configuration's 1200."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.config import BundlingConfig
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.solver.gn_pcg import lu_zero_steps
+    from bundlefusion_tpu_torch.tsdf.table import check_invariants
+    from bundlefusion_tpu_torch.utils import host_reads
+    from bundlefusion_tpu_torch.utils.metrics import evaluate_ate_rmse
+
+    bundling = bundling or BundlingConfig()
+    sub_len = bundling.submap_size
+
+    def run(stage_syncs=False, check_apply=False, wrap_boundary=None):
+        """warmup, every frame through upload_frame + process_frame (frame
+        i + 1 uploads while frame i computes), finish. Returns the engine,
+        per-frame wall ms (one wait at the frame's end), finish's ms and the
+        warm-up's seconds."""
+        eng = BundleFusion(seq["intrinsics"], app, bundling, sift_cfg=sift_cfg,
+                           max_keyframes=max_keyframes, device=dev)
+        warm_s = eng.warmup()
+        eng.timing.sync = _sync if stage_syncs else None
+        checker = None
+        if check_apply:
+            checker = _CheckedApply(eng)
+            eng._apply_tsdf_ops = checker
+        if wrap_boundary is not None:
+            eng._submap_step = wrap_boundary(eng._submap_step)
+        frame_ms = []
+        handle = eng.upload_frame(seq["depth"][0], seq["color"][0])
+        for f in range(n_frames):
+            _sync()
+            t0 = time.perf_counter()
+            nxt = (eng.upload_frame(seq["depth"][f + 1], seq["color"][f + 1])
+                   if f + 1 < n_frames else None)
+            eng.process_frame(handle)
+            _sync()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            handle = nxt
+        t0 = time.perf_counter()
+        eng.finish()
+        _sync()
+        return eng, frame_ms, (time.perf_counter() - t0) * 1e3, warm_s, checker
+
+    # ---- run A: the entry points as a user calls them; the checks ----
+    marks = [time.perf_counter()]
+    lu_zero_steps(dev, reset=True)
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    reads0 = host_reads["count"]
+    t0 = time.perf_counter()
+    eng, frame_ms, finish_ms, warm_s, checker = run(check_apply=True)
+    run_s = time.perf_counter() - t0 - warm_s
+    launches = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reads_run = host_reads["count"] - reads0
+    zero_steps = lu_zero_steps(dev)
+
+    traj = eng.trajectory()
+    valid = list(eng.frame_valid)
+    ate, n_ate = evaluate_ate_rmse(traj, gt[:n_frames])
+    ate_chained, _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
+    inv = check_invariants(eng.table)
+    fails = int(eng.table.num_alloc_failures)
+    verts, _ = eng.extract_mesh()
+    last_pose = traj[n_frames - 1]
+    med_err, hit = _depth_err(eng._render(eng.table, last_pose)["depth"], seq, n_frames - 1)
+    n_submaps = eng.num_keyframes
+    kf_valid = int(eng.keyframe_valid[:n_submaps].sum())
+    want_submaps = -(-(n_frames - 1) // sub_len)
+
+    if len(valid) != n_frames or not all(valid):
+        raise AssertionError(f"frames lost: {[f for f, v in enumerate(valid) if not v]}")
+    if not (n_ate == n_frames and ate < ATE_MAX_M):
+        raise AssertionError(f"ATE RMSE {ate} m over {n_ate} frames (limit {ATE_MAX_M})")
+    if n_submaps != want_submaps or kf_valid < want_submaps - 1:
+        raise AssertionError(f"{n_submaps} submaps dispatched ({want_submaps} expected), "
+                             f"{kf_valid} keyframes valid")
+    if eng.reint_frames < 1 or "rows" not in checker.checked:
+        raise AssertionError(f"no 11-op dispatch came out of the engine's own pose updates: "
+                             f"reint_frames {eng.reint_frames}, checks {checker.checked}")
+    if any(n == 0 for n in launches.values()) or set(launches) != set(kernels.SOURCES):
+        raise AssertionError(f"a TSDF kernel was never launched by process_frame: {launches}")
+    if any(inv.values()) or fails:
+        raise AssertionError(f"table invariants {inv}, alloc failures {fails}")
+    if not med_err < 2 * eng.tsdf_params.voxel_size:
+        raise AssertionError(f"render median |depth - GT| {med_err} m >= 2 voxels")
+    if not len(verts) > 10_000:
+        raise AssertionError(f"mesh of {len(verts)} triangles")
+    boundary_frames = [f for f in range(1, n_frames) if f % sub_len == 0]
+    plain_frames = [f for f in range(1, n_frames) if f % sub_len]
+    out = {
+        "frames": n_frames,
+        "keyframe_capacity": eng.G,
+        "frame_archive_capacity": eng.frame_cap,
+        "global_corr_capacity": eng.glob.corrs.capacity,
+        "all_valid": True,
+        "submaps": n_submaps,
+        "keyframes_valid": kf_valid,
+        "ate_rmse_m": ate,
+        "ate_rmse_m_chained": ate_chained,
+        "render_median_abs_err_m": med_err,
+        "render_hit_pixels": hit,
+        "mesh_triangles": int(len(verts)),
+        "alloc_failures": fails,
+        "launches": launches,
+        "main_path_checks": checker.checked,
+        "reint_frames": eng.reint_frames,
+        "reint_ops_total": eng.reint_ops_total,
+        "pairs_dropped_total": eng.pairs_dropped_total,
+        "lost_count": eng.lost_count,
+        "retry_list": list(eng.retry_list),
+        "lu_zero_steps": zero_steps,
+        "warmup_s": warm_s,
+        "frames_per_s": n_frames / (sum(frame_ms) / 1e3),
+        "run_s_with_finish": run_s,
+        "frame_ms_median": statistics.median(frame_ms[f] for f in plain_frames),
+        "frame_ms_boundary": [frame_ms[f] for f in boundary_frames],
+        "finish_ms": finish_ms,
+        "host_reads_run": reads_run,
+        "host_reads_per_boundary": [s["host_reads"] for s in eng.boundary_stats],
+        "prune_rounds_per_boundary": [s["prune_rounds"] for s in eng.boundary_stats],
+        "global_live_corrs": int(eng.glob.corrs.valid_mask().sum()),
+        "live_blocks": int((eng.table.slot_keys[:-1] != EMPTY_KEY).sum()),
+        "peak_mem_gb": peak_gb,
+    }
+    traj_a = traj.copy()
+    del eng, checker
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # ---- run B: a wait around every stage (the boundary's split); the
+    # flags must repeat ----
+    eng, frame_ms_b, finish_ms_b, _, _ = run(stage_syncs=True)
+    if list(eng.frame_valid) != valid:
+        raise AssertionError(f"validity flags differ between two runs: {valid} vs "
+                             f"{eng.frame_valid}")
+    traj_b = eng.trajectory()
+    out["trajectory_repeats_bitwise"] = bool(np.array_equal(traj_a, traj_b, equal_nan=True))
+    out["trajectory_max_abs_diff_second_run"] = float(np.nanmax(np.abs(traj_a - traj_b)))
+    totals, med = eng.timing.totals(), eng.timing.medians()
+    # each stage's mean over the boundaries that run it: "step" is the whole
+    # boundary inside process_frame (3 of them), the global stages skip g = 0
+    out["submap_step_ms_mean"] = {
+        k[len("time_submap_"):]: v * 1e3 for k, v in eng.timing.averages().items()
+        if k.startswith("time_submap_")}
+    out["finish_ms_with_stage_syncs"] = finish_ms_b
+    out["finish_dense_solve_ms"] = totals["time_finish_dense_solve"] * 1e3
+    out["frame_ms_median_with_stage_syncs"] = statistics.median(
+        frame_ms_b[f] for f in plain_frames)
+    out["frame_step_ms_median_with_stage_syncs"] = med["time_frame_step"] * 1e3
+    del eng
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # ---- run C: under a trace of the card alone: busy share over the run ----
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng = run()[0]
+        wall_ms = (time.perf_counter() - t0) * 1e3     # the warm-up included, as in the trace
+    if list(eng.frame_valid) != valid:
+        raise AssertionError("validity flags differ under the profiler")
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    if not device_ms > 0:
+        raise AssertionError("the profiler's trace holds no device time")
+    out["profile"] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                      "device_busy_share": device_ms / wall_ms}
+    del eng, prof
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # ---- run D: every boundary under a trace and an op counter of its own
+    # (a trace of the whole run with the host's ops in it takes minutes to
+    # read): launches, device ms and dispatched ops per boundary, and the
+    # kernels the boundaries spend most on ----
+    per_boundary = []
+
+    def wrap(inner):
+        def step(g, last_world):
+            per_boundary.append({"device_ops": 0, "device_ms": 0.0, "dispatched_ops": 0,
+                                 "kernels": {}})
+            with _CountedStage(per_boundary[-1]):
+                return inner(g, last_world)
+        return step
+
+    eng = run(wrap_boundary=wrap)[0]
+    if list(eng.frame_valid) != valid:
+        raise AssertionError("validity flags differ with the boundaries traced")
+    by_name = {}
+    for b in per_boundary:
+        for name, (ms, n) in b.pop("kernels").items():
+            ms_n = by_name.setdefault(name, [0.0, 0])
+            ms_n[0] += ms
+            ms_n[1] += n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out["boundary_profile"] = {
+        "per_boundary": per_boundary,
+        "top_device_ms": [[name, ms, n] for name, (ms, n) in top],
+    }
+    del eng
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    out["runs_s"] = dict(zip(("checked", "stage_syncs", "card_traced", "boundaries_traced"),
+                             (b - a for a, b in zip(marks, marks[1:]))))
+    return out
+
+
+def phase_solver_width(dev, n_frames=1200, reach=3, corrs_per_pair=16):
+    """The sparse solver at the keyframe capacity: the ring graph of
+    ``io.synthetic.ring_pose_graph`` perturbed by 0.01, solved with the
+    direct and with the PCG linear step; ms by CUDA events."""
+    from bundlefusion_tpu_torch.io.synthetic import ring_pose_graph
+    from bundlefusion_tpu_torch.solver import gn_pcg
+    from bundlefusion_tpu_torch.solver.residuals import corr_store_from_numpy
+    from bundlefusion_tpu_torch.utils import host_reads
+
+    gt, arrays = ring_pose_graph(n_frames, corrs_per_pair, reach)
+    rng = np.random.default_rng(0)
+    init = gt + rng.normal(size=gt.shape).astype(np.float32) * 0.01
+    init[0] = gt[0]
+    store = corr_store_from_numpy(arrays, dev)
+    poses0 = torch.as_tensor(init, device=dev)
+    valid = torch.ones(n_frames, dtype=torch.bool, device=dev)
+    out = {"frames": n_frames, "corrs": int(arrays["count"]),
+           "pairs": int(arrays["count"]) // corrs_per_pair}
+    for linear in ("dense", "pcg"):
+        params = gn_pcg.SolverParams(num_gn=3, num_pcg=60, max_pairs=4096, linear=linear)
+        gn_pcg.solve_sparse(poses0, valid, store, params)        # first-call set-up
+        _sync()
+        reads0 = host_reads["count"]
+        res = {}
+        ms = _event_ms(lambda: res.update(zip(("poses", "stats"),
+                                              gn_pcg.solve_sparse(poses0, valid, store, params))))
+        st = res["stats"]
+        c0, c1 = float(st.initial_cost), float(st.final_cost)
+        err = float((res["poses"] - torch.as_tensor(gt, device=dev)).abs().max())
+        if int(st.num_pairs_dropped) or not c1 < 1e-3 * c0:
+            raise AssertionError(f"solve_sparse({linear}) at N={n_frames}: cost {c0} -> {c1}, "
+                                 f"{int(st.num_pairs_dropped)} pairs dropped")
+        out[linear] = {"ms": ms, "initial_cost": c0, "final_cost": c1, "max_abs_pose_err": err,
+                       "host_reads": host_reads["count"] - reads0}
+    # the direct step's parts, on the first iteration's system
+    params = gn_pcg.SolverParams(num_gn=3, max_pairs=4096, linear="dense")
+    prob = gn_pcg.presort_corrs(store, n_frames, params)
+    free_f = (valid & (torch.arange(n_frames, device=dev) != 0)).to(torch.float32)[:, None]
+    H, b = gn_pcg.build_sparse_pair_system(poses0, prob.sc, 1.0, n_live=prob.bound)
+    Ad, rhs, _ = gn_pcg._assemble_reduced(H, b, prob, free_f, n_frames)
+    _sync()
+    times = {"presort": [], "build": [], "assemble": [], "lu": []}
+    for _ in range(REPS):
+        times["presort"].append(_event_ms(lambda: gn_pcg.presort_corrs(store, n_frames, params)))
+        times["build"].append(_event_ms(lambda: gn_pcg.build_sparse_pair_system(
+            poses0, prob.sc, 1.0, n_live=prob.bound)))
+        times["assemble"].append(_event_ms(lambda: gn_pcg._assemble_reduced(
+            H, b, prob, free_f, n_frames)))
+        times["lu"].append(_event_ms(lambda: torch.linalg.solve_ex(Ad, rhs[:, None])))
+    out["dense_parts_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    out["system_size"] = int(Ad.shape[0])
+    # 2/3 n^3 operations of the factorisation against the float32 peak
+    out["lu_bound_ms"] = (2 / 3) * Ad.shape[0] ** 3 / FP32_FLOP_PER_S * 1e3
+    del Ad, H, b, prob, store
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
@@ -881,7 +1192,14 @@ def main() -> int:
     t0 = time.perf_counter()
     fe = phase_frontend(dev, seq, gt, app)
     fe["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    en = phase_engine(dev, seq, gt, app)
+    en["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    en["solver_at_width"] = phase_solver_width(dev)
+    en["solver_at_width"]["phase_s"] = time.perf_counter() - t0
     main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
+    main_errs += [c["max_abs_err"] for c in en["main_path_checks"].values()]
 
     def entry(name, sub, extra_err=()):
         k11 = kern["11op"][sub] if sub else kern["11op"]
@@ -893,6 +1211,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sl["launches"][name],
             "launches_frontend": fe["launches"][name],
+            "launches_engine": en["launches"][name],
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -918,6 +1237,7 @@ def main() -> int:
     print(json.dumps(kernels_line))
     print(json.dumps({"slice": sl}))
     print(json.dumps({"frontend": fe}))
+    print(json.dumps({"engine": en}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

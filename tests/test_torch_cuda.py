@@ -6,9 +6,15 @@ CUDA toolkit, without the repository's JAX-side ``conftest.py``:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The last two tests drive ``frame_step`` on the card: against the CPU run on
-three frames (``valid`` equal, ``T_world`` within 2e-3), and twice on the
-card (``valid`` equal, ``T_world`` within 1e-5).
+Two tests drive ``frame_step`` on the card: against the CPU run on three
+frames (``valid`` equal, ``T_world`` within 2e-3), and twice on the card
+(``valid`` equal, ``T_world`` within 1e-5). The last ones hold the card
+against the CPU for one ``solve_bundle`` (poses within 1e-4: the same float32
+sums in another order, and another LU), one ``_submap_step`` from the same
+state (flags equal, poses within 2e-3) and a 13-frame ``process_frame`` +
+``finish`` run (flags equal, trajectory within 5e-3, as the CPU test holds
+the port to the JAX engine), and run the engine twice on the card: the same
+flags, and the same trajectory bit for bit.
 
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
@@ -249,3 +255,137 @@ def test_frame_step_twice_on_card(setup):
     assert [v for _, v in a] == [v for _, v in b]
     for (Ta, _), (Tb, _) in zip(a, b):
         np.testing.assert_allclose(Ta, Tb, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the solver, one boundary and the whole engine: card against CPU
+# ---------------------------------------------------------------------------
+
+ENGINE_FRAMES = 13
+
+
+def _small_engine(device, **bund):
+    from bundlefusion_tpu_torch import AppConfig, BundlingConfig, SiftConfig
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+
+    cfg = dict(width_sift=160, height_sift=120, submap_size=4, downsampled_width=40,
+               downsampled_height=30, max_local_corr=2048, max_global_corr=8192,
+               min_num_matches_local=4, min_num_matches_global=4)
+    cfg.update(bund)
+    return BundleFusion(
+        default_intrinsics(160, 120),
+        AppConfig(integration_width=80, integration_height=60, sdf_voxel_size=0.03,
+                  sdf_truncation=0.09, hash_num_sdf_blocks=8192, hash_key_capacity=16384,
+                  visible_blocks_cap=8192, alloc_max_new_blocks_per_frame=8192),
+        BundlingConfig(**cfg),
+        sift_cfg=SiftConfig(num_octaves=3, target_keys=96, max_candidates_per_octave=256,
+                            min_scale=1.0, dog_thresh=0.004),
+        max_keyframes=8, device=device)
+
+
+def _engine_run(device, n=ENGINE_FRAMES):
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+
+    seq = make_sequence_wire(n, intr=default_intrinsics(160, 120))
+    eng = _small_engine(device)
+    eng.warmup()
+    for f in range(n):
+        out = eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+        assert out["pose"].device.type == torch.device(device).type
+    eng.finish(extra_solves=1)
+    return eng
+
+
+def _moved(obj, device):
+    """A copy of a (nested) dataclass of tensors on ``device``."""
+    import dataclasses
+
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        kw[f.name] = v.to(device).clone() if isinstance(v, torch.Tensor) else _moved(v, device)
+    return type(obj)(**kw)
+
+
+@pytest.fixture(scope="module")
+def window_state(setup):
+    """A CPU engine stopped just before its second boundary (frame 8 stepped,
+    boundary not yet run), and that frame's pose."""
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+
+    seq = make_sequence_wire(9, intr=default_intrinsics(160, 120))
+    eng = _small_engine("cpu")
+    for f in range(8):
+        eng.process_frame(seq["depth"][f], seq["color"][f])
+    T, _ = eng._frame_step(seq["depth"][8], seq["color"][8], 4, 8)
+    assert eng.num_keyframes == 1 and bool(eng.local.valid.all())
+    return eng, T
+
+
+def test_solve_bundle_on_card_matches_cpu(window_state):
+    from bundlefusion_tpu_torch.geometry.lie import matrix_to_pose
+    from bundlefusion_tpu_torch.solver.gn_pcg import solve_bundle
+
+    eng, _ = window_state
+    out = {}
+    for device in ("cpu", "cuda"):
+        loc = _moved(eng.local, device)
+        poses, stats = solve_bundle(matrix_to_pose(loc.rel), loc.valid, loc.corrs, loc.cache,
+                                    eng.intr_cache, eng.local_solver, eng.dense_term_params)
+        assert poses.device.type == device
+        out[device] = (poses.cpu().numpy(), float(stats.final_cost), float(stats.initial_cost))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-2, atol=1e-7)
+    assert out["cuda"][1] < out["cuda"][2]
+    assert np.abs(out["cuda"][0][1:]).max() > 1e-3     # the window moved
+
+
+def test_submap_step_on_card_matches_cpu(window_state):
+    src, T = window_state
+    packs = {}
+    for device in ("cpu", "cuda"):
+        eng = _small_engine(device)
+        eng.local, eng.glob = _moved(src.local, device), _moved(src.glob, device)
+        eng.kf_valid_dev = src.kf_valid_dev.to(device).clone()
+        eng.submap_base = src.submap_base.to(device).clone()
+        packs[device] = eng._submap_step(1, T.to(device)).cpu().numpy()
+        assert eng.boundary_stats[-1]["prune_rounds"] == 0
+    a, b = packs["cuda"], packs["cpu"]
+    flags = slice(eng._off_lv, eng._off_comp)
+    np.testing.assert_array_equal(a[flags], b[flags])
+    np.testing.assert_array_equal(a[eng._off_ok:], b[eng._off_ok:])
+    assert a[eng._off_flags] == 1.0 and a[eng._off_flags + 1] == 1.0
+    ok = np.repeat(b[eng._off_ok:] > 0.5, 16)
+    assert ok.sum() == 16 * 8
+    np.testing.assert_allclose(a[eng._off_comp:eng._off_ok][ok], b[eng._off_comp:eng._off_ok][ok],
+                               rtol=0, atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def card_engine_runs(setup):
+    return _engine_run("cuda"), _engine_run("cuda")
+
+
+def test_engine_on_card_matches_cpu(card_engine_runs):
+    from bundlefusion_tpu_torch.tsdf.table import check_invariants
+
+    card, cpu = card_engine_runs[0], _engine_run("cpu")
+    assert card.frame_valid == cpu.frame_valid == [True] * ENGINE_FRAMES
+    np.testing.assert_array_equal(card.keyframe_valid, cpu.keyframe_valid)
+    assert card.num_keyframes == cpu.num_keyframes == 3
+    assert (card.lost_count, card.retry_list) == (cpu.lost_count, cpu.retry_list) == (0, [])
+    assert card.reint_frames > 0 and kernels.launch_counts["tsdf_apply"] > 0
+    for Tc, Th in zip(card.trajectory(), cpu.trajectory()):
+        assert np.isfinite(Tc).all()
+        np.testing.assert_allclose(Tc, Th, rtol=0, atol=5e-3)
+    assert all(v == 0 for v in check_invariants(card.table).values())
+    assert len(card.extract_mesh()[0]) > 10_000
+
+
+def test_engine_twice_on_card(card_engine_runs):
+    a, b = card_engine_runs
+    assert a.frame_valid == b.frame_valid
+    np.testing.assert_array_equal(a.keyframe_valid, b.keyframe_valid)
+    assert (a.reint_frames, a.reint_ops_total) == (b.reint_frames, b.reint_ops_total)
+    np.testing.assert_array_equal(a.trajectory(), b.trajectory())
+    np.testing.assert_array_equal(np.stack(a.sift_world), np.stack(b.sift_world))

@@ -26,12 +26,12 @@ assert not missing, missing
 
 # every module the port holds: a new one is added here with its port
 MODULES = [
-    "config", "kernels",
+    "__main__", "config", "kernels",
     "geometry.camera", "geometry.kabsch", "geometry.lie",
     "io.ply", "io.synthetic",
     "ops.filters", "ops.image", "ops.matching", "ops.resample", "ops.sift",
     "pipeline.frames", "pipeline.frontend", "pipeline.online", "pipeline.trajectory",
-    "solver.residuals",
+    "solver.dense_term", "solver.gn_pcg", "solver.residuals",
     "tsdf.apply_ops", "tsdf.integrate", "tsdf.marching_cubes", "tsdf.splat", "tsdf.table",
     "utils.metrics", "utils.timing",
 ]

@@ -18,6 +18,11 @@ from bundlefusion_tpu.ops.image import (
 from bundlefusion_tpu.pipeline import frames as jframes
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
 
+# The suite runs in several worker processes at once, and every worker imports
+# this module while it collects: two intra-op threads each keep the workers
+# from fighting over the cores (the sizes here are too small to use more).
+torch.set_num_threads(2)
+
 # the small configuration of tests/test_pipeline_e2e.py
 SIFT = dict(num_octaves=3, target_keys=96, max_candidates_per_octave=256,
             min_scale=1.0, dog_thresh=0.004)
@@ -83,3 +88,17 @@ def jax_window(n_frames: int, capacity: int):
         c_int = resample_bilinear(jnp.asarray(seq["color"][i]), 60, 80)
         cache = jframes.store_cache_frame(cache, i, d_int, c_int, intr_cache)
     return keys, cache, intr, intr_cache
+
+
+def port_corrs(store, device="cpu"):
+    """A JAX ``CorrStore`` carried into the port."""
+    from bundlefusion_tpu_torch.solver.residuals import corr_store_from_numpy
+
+    return corr_store_from_numpy(fields_np(store), device)
+
+
+def port_cache(cache, device="cpu"):
+    """A JAX ``DenseCache`` carried into the port."""
+    from bundlefusion_tpu_torch.pipeline.frames import dense_cache_from_numpy
+
+    return dense_cache_from_numpy(fields_np(cache), device)
