@@ -7,10 +7,13 @@ tensor code is PyTorch; the one Pallas kernel of the JAX package (the fused
 TSDF integrate / de-integrate sweep) is three hand-written CUDA kernels for
 Hopper under ``kernels/``, built with ``nvcc`` on first use.
 
-Ported so far: the per-frame path of the engine (``pipeline.online``:
-SIFT frontend, match filters, correspondence store, chained pose, TSDF
-fusion with re-integration, render, mesh). ``solver`` holds only the
-correspondence store; bundle adjustment and ``submap_step`` are not ported.
+Ported so far: the engine's main path on one device (``pipeline.online``:
+SIFT frontend, match filters, correspondences, bundle adjustment and the
+submap boundary, TSDF fusion with re-integration, splat render, mesh) and
+the recorded-scan path (``.sens`` / TUM / binary-dump readers and the native
+depth codec in ``io``, raycast ``render``, host paging of TSDF blocks,
+engine checkpoints, the CLI's file inputs). Multi-device meshes are not
+ported.
 
 This package imports ``torch`` and never ``jax`` or ``bundlefusion_tpu``.
 """

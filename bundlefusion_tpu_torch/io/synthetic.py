@@ -169,6 +169,39 @@ def loop_trajectory(n_frames: int, radius: float = 0.55, seed: int = 0,
     return np.stack(poses)
 
 
+def multiloop_trajectory(n_frames: int, n_loops: int = 3, radius: float = 0.55, seed: int = 0,
+                         odom_noise: float = 0.0):
+    """Several out-and-back excursions, each returning to (nearly) the
+    start: several real loop closures over one sequence. Each loop sweeps
+    another azimuth sector (alternating direction, a small lift per loop).
+    Returns [N, 4, 4] cam-to-world float32."""
+    rng = np.random.default_rng(seed)
+    poses = []
+    per = n_frames / float(n_loops)
+    for i in range(n_frames):
+        loop = min(int(i / per), n_loops - 1)
+        s = (i - loop * per) / max(per - 1.0, 1.0)
+        s = min(max(s, 0.0), 1.0)
+        a = np.pi / 2.0 * np.sin(np.pi * s) ** 2
+        a = (1.0 if loop % 2 == 0 else -1.0) * a
+        lift = 0.1 * loop
+        eye = np.array(
+            [
+                radius * np.sin(a),
+                0.12 * np.sin(4.0 * np.pi * s) + lift * np.sin(np.pi * s) ** 2,
+                -0.35 + 0.2 * (1.0 - np.cos(a)),
+            ],
+            np.float64,
+        )
+        if odom_noise > 0:
+            eye = eye + rng.normal(scale=odom_noise, size=3)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = _look_at(eye)
+        T[:3, 3] = eye
+        poses.append(T)
+    return np.stack(poses)
+
+
 def default_intrinsics(width: int = 320, height: int = 240) -> CameraIntrinsics:
     f = 0.89 * width  # ~58 deg hfov like Kinect
     return CameraIntrinsics(

@@ -21,10 +21,14 @@ Port of ``bundlefusion_tpu/pipeline/online.py`` (single device):
   keyframes, behaviour past keyframe capacity;
 - ``finish`` (trailing partial submap, extra global solves with the dense
   term at the end, the re-integration drain), ``warmup``, ``upload_frame``,
-  ``trajectory``, ``extract_mesh``.
+  ``trajectory``, ``extract_mesh``, ``render`` (raycast), ``save`` /
+  ``load`` (``io/checkpoint.py``);
+- host paging of cold TSDF blocks when ``app.streaming_enabled``: a sweep
+  every ``streaming_every`` frames around the latest chained camera
+  position, the paged keys the allocation skips, and a stream-in of the
+  paged blocks a re-integration row could touch before it runs.
 
-Not ported: multi-device meshes, host paging of TSDF blocks, ``render``
-(raycast), ``save`` / ``load``, and the serialized device-time replay
+Not ported: multi-device meshes and the serialized device-time replay
 (``profile_every``): give ``timing`` a ``sync`` callable instead.
 
 The JAX engine fuses each phase into one jitted program, donates its state
@@ -219,8 +223,6 @@ class BundleFusion:
         supported yet."""
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
-        if app.streaming_enabled:
-            raise NotImplementedError("host paging (streaming) is not ported yet")
         self.device = torch.device(device) if device is not None else default_device()
         self.app = app
         self.bundling = bundling
@@ -346,6 +348,18 @@ class BundleFusion:
         # where boundaries stop rolling the buffer over)
         self._window_base = 0
         self._anchor_slot = 0
+        # host paging of cold TSDF blocks (off by default, as in the
+        # reference: paging conflicts with de-integration,
+        # CUDASceneRepHashSDF.h:89-91). When on: the host block store and the
+        # sorted device-side array of paged keys the allocation skips
+        self.host_blocks = None
+        self._blocked_dev = None
+        if app.streaming_enabled:
+            from bundlefusion_tpu_torch.tsdf.streaming import HostBlockStore
+
+            self.host_blocks = HostBlockStore()
+            self._blocked_dev = torch.full((app.streaming_blocked_cap,), EMPTY_KEY,
+                                           dtype=torch.int32, device=self.device)
         self.traj_manager = TrajectoryManager(app.top_n_active, app.min_pose_dist_sqrt)
         # relocalization retry list (reference SIFTImageManager retry list +
         # Bundler::tryRevalidation): persistent and uncapped, oldest first,
@@ -561,7 +575,7 @@ class BundleFusion:
         packed = candidate_keys(d[0], self.intr_int, T_cur, self.tsdf_params)
         if not valid:
             packed = torch.full_like(packed, EMPTY_KEY)
-        allocate_packed(self.table, packed)
+        allocate_packed(self.table, packed, blocked=self._blocked_dev)
         # signs and image indices stay on the host: the op reads nothing back
         self._apply_tsdf_ops(d, c, T_cur[None], [1.0 if valid else 0.0], [0])
 
@@ -599,7 +613,8 @@ class BundleFusion:
             for i in range(R + 1)
         ])
         packed = torch.where(alloc_en[:, None], packed, EMPTY_KEY).to(torch.int32).reshape(-1)
-        allocate_packed(self.table, packed, compact=ALLOC_COMPACT * (R + 1))
+        allocate_packed(self.table, packed, compact=ALLOC_COMPACT * (R + 1),
+                        blocked=self._blocked_dev)
         self._apply_tsdf_ops(depths, colors, poses, signs, img_of_op)
 
     def _tsdf_dispatch(self, store_slot=None, T_world=None, valid=None):
@@ -610,6 +625,12 @@ class BundleFusion:
         has_cur = store_slot is not None
         if not rows and not has_cur:
             return
+        if rows and self.app.streaming_enabled and len(self.host_blocks):
+            # stream-in before re-integration: a de- or re-integration over a
+            # paged region would under-subtract (the allocation skips paged
+            # keys); the reference's chunk grid does the same
+            # (CUDASceneRepChunkGrid.h:142-210)
+            self._stream_in_for_rows(rows)
         R = REINT_ROWS
         if not rows and has_cur:
             self._tsdf_fast(store_slot, T_world, bool(valid))
@@ -964,6 +985,10 @@ class BundleFusion:
             with self.timing.stage("time_visualize", ft):
                 self._render_frame(f, T_world)
 
+        # host paging sweep (opt-in): far blocks out, returning blocks in
+        if self.app.streaming_enabled and f > 0 and f % self.app.streaming_every == 0:
+            self._stream_update()
+
         if is_boundary:
             with self.timing.stage("time_submap_step", ft):
                 dispatched = self._dispatch_submap(T_world_dev)
@@ -976,6 +1001,55 @@ class BundleFusion:
         with self.timing.stage("time_solve", ft):
             self._retire_submap()
         return {"pose": T_world_dev, "valid": valid_dev}
+
+    # ------------------------------------------------------------------
+    def _stream_update(self):
+        """One host paging sweep around the latest chained camera position:
+        returning blocks in, far blocks out, then the device-side paged-key
+        array refreshed (``isSDFBlockStreamedOut`` analog)."""
+        from bundlefusion_tpu_torch.tsdf.streaming import stream_in, stream_out
+
+        if not self.sift_world:
+            return  # no recorded pose yet to centre the radius on
+        campos = np.asarray(self.sift_world[-1])[:3, 3]
+        vs = self.app.sdf_voxel_size
+        r = self.app.streaming_radius
+        stream_in(self.table, self.host_blocks, campos, r, vs)
+        stream_out(self.table, self.host_blocks, campos, r, vs)
+        self._refresh_blocked_dev()
+
+    def _stream_in_for_rows(self, rows):
+        """Page in every host block that a pending re-integration row's old
+        or new frustum could touch (conservative 8-corner test), then
+        refresh the paged-key array."""
+        from bundlefusion_tpu_torch.tsdf.streaming import paged_keys_in_frustum, stream_in_keys
+
+        poses = []
+        for _f, mode, To, Tn in rows:
+            if mode in (1, 2):
+                poses.append(To)
+            if mode in (2, 3):
+                poses.append(Tn)
+        keys = paged_keys_in_frustum(self.host_blocks, poses, self.intr_int, self.tsdf_params,
+                                     self.app.integration_height, self.app.integration_width)
+        if len(keys):
+            stream_in_keys(self.table, self.host_blocks, keys)
+            self._refresh_blocked_dev()
+
+    def _refresh_blocked_dev(self):
+        """Rebuild the sorted device-side paged-key array from the host
+        store. It grows (doubling) rather than truncating: a dropped key
+        would let the allocation re-create that block empty, forking it from
+        its host copy, which a later stream-in would overwrite."""
+        cap = self._blocked_dev.shape[0]
+        n = len(self.host_blocks.blocks)
+        while n > cap:
+            cap *= 2
+        arr = np.full((cap,), EMPTY_KEY, np.int32)
+        if n:
+            arr[:n] = np.sort(np.fromiter(self.host_blocks.blocks.keys(), np.int64)
+                              .astype(np.int32))
+        self._blocked_dev = torch.as_tensor(arr, device=self.device)
 
     # ------------------------------------------------------------------
     def _flush_pending(self):
@@ -1169,6 +1243,20 @@ class BundleFusion:
                 self._drain_reintegration()
 
     # ------------------------------------------------------------------
+    def render(self, cam_to_world, raycast_params=None):
+        """Raycast the TSDF from a camera pose at integration resolution:
+        ``depth``, ``points``, ``normals``, ``color`` on the engine's device
+        (the per-frame render of ``process_frame`` is the splat)."""
+        from bundlefusion_tpu_torch.tsdf.raycast import RaycastParams, raycast
+
+        rp = raycast_params or RaycastParams(
+            ray_increment_factor=self.app.sdf_ray_increment_factor,
+            depth_min=self.app.render_depth_min,
+            depth_max=self.app.render_depth_max,
+        )
+        return raycast(self.table, self.intr_int, self._as_pose(cam_to_world),
+                       self.tsdf_params, rp)
+
     def extract_mesh(self):
         from bundlefusion_tpu_torch.tsdf.marching_cubes import extract_mesh
 
@@ -1179,3 +1267,22 @@ class BundleFusion:
         if not self.complete_traj:
             return np.zeros((0, 4, 4), np.float32)
         return np.stack(self.complete_traj)
+
+    # ------------------------------------------------------------------
+    def save(self, path: str):
+        """Checkpoint the complete engine state (voxel table with its
+        host-paged blocks, keyframe and correspondence stores, frame
+        archive, trajectories, scheduler) into one ``.npz``. Resume with
+        :meth:`BundleFusion.load`."""
+        from bundlefusion_tpu_torch.io.checkpoint import save_engine
+
+        save_engine(self, path)
+
+    @staticmethod
+    def load(path: str, device=None) -> "BundleFusion":
+        """An engine restored from a checkpoint written by :meth:`save` or
+        by the JAX package's ``BundleFusion.save``, on ``device`` (the CUDA
+        card unless the caller names another)."""
+        from bundlefusion_tpu_torch.io.checkpoint import load_engine
+
+        return load_engine(path, device=device)

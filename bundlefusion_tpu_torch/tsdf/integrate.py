@@ -1,6 +1,6 @@
 """TSDF allocation, visible-block compaction and integrate/de-integrate.
 
-Port of ``bundlefusion_tpu/tsdf/integrate.py:46-398``: candidate blocks
+Port of ``bundlefusion_tpu/tsdf/integrate.py``: candidate blocks
 along each depth ray's truncation band (reference ``allocKernel``),
 in-frustum block compaction (``compactifyHashAllInOneKernel``), and the
 signed-weight integrate / de-integrate voxel update
@@ -23,6 +23,7 @@ from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
 from bundlefusion_tpu_torch.geometry.lie import pose_inverse, transform_points
 from bundlefusion_tpu_torch.tsdf.table import (
     BLOCK_SIZE,
+    BLOCK_VOLUME,
     EMPTY_KEY,
     GRID_BITS,
     GRID_DIM,
@@ -159,6 +160,81 @@ def visible_block_indices(table: VoxelBlockTable, intr: CameraIntrinsics, cam_to
     )
     count = torch.clamp(torch.sum(vis.to(torch.int32)), max=cap)
     return out[:cap], count
+
+
+def _block_voxel_world_positions(block_coords, params: TsdfParams):
+    """[K, 3] block coords -> [K, 512, 3] voxel-centre world positions
+    (linear voxel index (z * 8 + y) * 8 + x)."""
+    r = torch.arange(BLOCK_SIZE, dtype=torch.float32, device=block_coords.device)
+    zz, yy, xx = torch.meshgrid(r, r, r, indexing="ij")
+    local = torch.stack([xx, yy, zz], -1).reshape(BLOCK_VOLUME, 3)
+    corner = block_to_world(block_coords, params.voxel_size)
+    return corner[:, None, :] + (local[None] + 0.5) * params.voxel_size
+
+
+def integrate_frame(
+    table: VoxelBlockTable,
+    depth,
+    color,
+    intr: CameraIntrinsics,
+    cam_to_world,
+    params: TsdfParams,
+    visible_positions,
+    sign: float = 1.0,
+) -> VoxelBlockTable:
+    """Fuse (sign +1) or un-fuse (sign -1) one RGB-D frame into the blocks
+    at ``visible_positions`` ([cap] key-table positions from
+    ``visible_block_indices``, -1 padding), sampling the raw float32 images
+    (the reference's standalone update, ``integrateDepthMapKernel``).
+    Untouched voxels keep their sdf bit for bit; invalid entries read and
+    write the zero dummy row. In place."""
+    vp = visible_positions.to(torch.int64)
+    valid_block = vp >= 0
+    safe_vp = torch.clamp(vp, 0, table.capacity - 1)
+    slots = torch.where(valid_block, table.slots[safe_vp].to(torch.int64), table.num_blocks)
+    coords = unpack_key(table.keys[safe_vp])
+
+    pts_world = _block_voxel_world_positions(coords, params)  # [K, V, 3]
+    pts_cam = transform_points(pose_inverse(cam_to_world), pts_world)
+    z = pts_cam[..., 2]
+    zs = torch.clamp(z, min=1e-6)
+    u = torch.round(pts_cam[..., 0] / zs * intr.fx + intr.cx).to(torch.int64)
+    v = torch.round(pts_cam[..., 1] / zs * intr.fy + intr.cy).to(torch.int64)
+    inb = (u >= 0) & (u < intr.width) & (v >= 0) & (v < intr.height) & (z > 0)
+    lin = torch.clamp(v, 0, intr.height - 1) * intr.width + torch.clamp(u, 0, intr.width - 1)
+    d = depth.reshape(-1)[lin]
+    rgb = color.reshape(-1, 3)[lin.reshape(-1)].reshape(lin.shape + (3,))
+
+    depth_ok = (
+        torch.isfinite(d)
+        & (d >= params.depth_min)
+        & (d <= min(params.depth_max, params.max_integration_distance))
+    )
+    sdf = d - z
+    trunc = truncation_at(params, d)
+    upd = inb & depth_ok & (sdf > -trunc) & valid_block[:, None]
+    sdf_cl = torch.minimum(sdf, trunc)
+    w_new = torch.where(upd, params.integration_weight_sample, 0.0) * sign
+
+    old_sdf = table.sdf[slots]
+    old_w = table.weight[slots]
+    old_c = table.color[slots]        # [K, 3 * V] channel-major
+    new_w = torch.clamp(old_w + w_new, 0.0, params.integration_weight_max)
+    applied_w = new_w - old_w
+    sum_sdf = old_sdf * old_w + torch.where(upd, sdf_cl, 0.0) * applied_w
+    new_sdf = torch.where(
+        applied_w != 0,
+        torch.where(new_w > 0, sum_sdf / torch.clamp(new_w, min=1e-12), 0.0),
+        old_sdf,
+    )
+    K = old_c.shape[0]
+    rgb_cm = torch.movedim(rgb, -1, 1).reshape(K, 3 * BLOCK_VOLUME)
+    appl3 = torch.where(upd, applied_w, 0.0).repeat(1, 3)
+    new_c = torch.clamp(old_c + rgb_cm * appl3, min=0.0)
+    table.sdf[slots] = new_sdf
+    table.weight[slots] = new_w
+    table.color[slots] = new_c
+    return table
 
 
 def _apply_one(table, depth, color, cam_to_world, intr, params, sign):

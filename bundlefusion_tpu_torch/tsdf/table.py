@@ -1,7 +1,6 @@
 """Block-sparse TSDF voxel table: a sorted key table over voxel-block rows.
 
-Port of ``bundlefusion_tpu/tsdf/table.py`` (everything but
-``defrag_prefix``). The design is the reference's: ``keys`` is a sorted
+Port of ``bundlefusion_tpu/tsdf/table.py``. The design is the reference's: ``keys`` is a sorted
 int32 array of packed block coordinates with ``EMPTY_KEY`` (int32 max)
 padding, ``slots`` maps each key to its payload row, lookup is a binary
 search, allocation is run-dedup + pop from a free-list stack + re-sort.
@@ -182,7 +181,8 @@ def allocate(table: VoxelBlockTable, candidate_coords, valid_mask) -> VoxelBlock
 
 
 def allocate_packed(
-    table: VoxelBlockTable, packed_all: torch.Tensor, compact: int = ALLOC_COMPACT
+    table: VoxelBlockTable, packed_all: torch.Tensor, compact: int = ALLOC_COMPACT,
+    blocked: torch.Tensor | None = None,
 ) -> VoxelBlockTable:
     """Insert candidate blocks given as packed keys [M] (EMPTY = invalid).
 
@@ -192,6 +192,11 @@ def allocate_packed(
     in ``num_alloc_failures``. The merge always runs: with nothing missing
     it leaves every array as it was, which spares the reference's
     ``lax.cond`` and a wait for the device. Updates ``table`` in place.
+
+    ``blocked``: optional ascending int32 [B] of the packed keys paged out
+    to the host (``EMPTY_KEY`` padded), the ``isSDFBlockStreamedOut``
+    analog: a candidate that matches one is dropped instead of being
+    allocated empty, which would fork the block from its host copy.
     """
     dev = table.device
     packed_all = packed_all.to(torch.int32)
@@ -202,6 +207,10 @@ def allocate_packed(
     packed_raw = torch.full((M + 1,), EMPTY_KEY, dtype=torch.int32, device=dev)
     packed_raw[torch.where(keep & (cpos < M), cpos, M)] = packed_all
     packed_raw = packed_raw[:M]
+    if blocked is not None:
+        bpos = torch.clamp(torch.searchsorted(blocked, packed_raw), 0, blocked.shape[0] - 1)
+        hit = (blocked[bpos] == packed_raw) & (packed_raw != EMPTY_KEY)
+        packed_raw = torch.where(hit, EMPTY_KEY, packed_raw).to(torch.int32)
 
     num_blocks = table.free_list.shape[0]
     cap = table.capacity
@@ -298,6 +307,78 @@ def free_blocks(table: VoxelBlockTable, free_mask: torch.Tensor) -> VoxelBlockTa
     table.free_count = (table.free_count + num_free).to(torch.int32)
     table.num_alloc_failures = (table.num_alloc_failures + uncleared).to(torch.int32)
     return table
+
+
+def defrag_prefix(table: VoxelBlockTable, window: int) -> VoxelBlockTable:
+    """Sort the first ``window`` payload rows by packed block key, in place.
+
+    Key-sorting the payload compacts the live rows of the window into a
+    dense prefix (packed key = z | y | x, x fastest). Rows at ``window`` and
+    beyond keep their keys, slots and free entries. Dead rows of the window
+    are zeroed, which also clears stale payload left by frees beyond
+    ``FREE_COMPACT``. Not wired into the engine (nor is it in the
+    reference)."""
+    N = table.num_blocks
+    window = min(window, N)
+    if window <= 0:
+        return table
+    dev = table.device
+    sk = table.slot_keys[:window]
+    order = torch.argsort(sk, stable=True)      # EMPTY (int32 max) sorts last
+    sk_sorted = sk[order]
+    live_sorted = sk_sorted != EMPTY_KEY
+    n_live = torch.sum(live_sorted.to(torch.int64))
+
+    # payload rows gathered into key order; dead rows zero
+    lf = live_sorted[:, None].to(torch.float32)
+    for name in ("sdf", "weight", "color", "slot_geo"):
+        arr = getattr(table, name)
+        arr[:window] = arr[:window][order] * lf
+    any_beyond = torch.any(table.slot_keys[window:N] != EMPTY_KEY)
+    table.slot_keys[:window] = torch.where(live_sorted, sk_sorted, EMPTY_KEY)
+
+    # a key whose slot was inside the window moves to its rank among the
+    # window's live keys (sk_sorted is unique ascending)
+    in_window = (table.slots >= 0) & (table.slots < window) & (table.keys != EMPTY_KEY)
+    new_pos = torch.clamp(torch.searchsorted(sk_sorted, table.keys), 0, window - 1)
+    table.slots = torch.where(in_window, new_pos, table.slots).to(torch.int32)
+
+    # free list: window slots [n_live, window) are the free ones now; free
+    # slots >= window keep the bottom of the stack, the window's go on top,
+    # descending so slot n_live pops first
+    fl0 = table.free_list
+    idx = torch.arange(fl0.shape[0], dtype=torch.int64, device=dev)
+    big = (idx < table.free_count.to(torch.int64)) & (fl0 >= window)
+    n_big = torch.sum(big.to(torch.int64))
+    fl = torch.full_like(fl0, -1)
+    _scatter_drop_small(fl, torch.where(big, _cumrank(big), N), torch.where(big, fl0, -1))
+    new_fc = n_big + (window - n_live)
+    in_small = (idx >= n_big) & (idx < new_fc)
+    table.free_list = torch.where(in_small, window - 1 - (idx - n_big), fl).to(torch.int32)
+    table.free_count = new_fc.to(torch.int32)
+    # occupancy: if nothing lives beyond the window the prefix is compact
+    table.high_water = torch.where(any_beyond, table.high_water, n_live).to(torch.int32)
+    return table
+
+
+def table_from_numpy(arrays: dict, device) -> VoxelBlockTable:
+    """A table holding the given arrays (keys: the field names), such as a
+    JAX ``VoxelBlockTable``'s. Only lanes 0-3 of ``slot_geo`` are kept (the
+    JAX table pads its rows to 128 lanes), and ``slot_keys`` must mirror
+    ``keys`` / ``slots``, else this raises ``ValueError``."""
+    from bundlefusion_tpu_torch.utils import owned_tensor
+
+    dtypes = {f.name: torch.int32 for f in fields(VoxelBlockTable)}
+    dtypes.update(dict.fromkeys(("sdf", "weight", "color", "slot_geo"), torch.float32))
+    arrays = dict(arrays, slot_geo=np.asarray(arrays["slot_geo"])[:, :SLOT_GEO_LANES])
+    keys, slots = np.asarray(arrays["keys"]), np.asarray(arrays["slots"])
+    occ = keys != EMPTY_KEY
+    expect = np.full(np.asarray(arrays["slot_keys"]).shape, EMPTY_KEY, np.int64)
+    expect[slots[occ]] = keys[occ]
+    if not np.array_equal(expect, np.asarray(arrays["slot_keys"])):
+        raise ValueError("slot_keys does not mirror keys / slots")
+    return VoxelBlockTable(**{name: owned_tensor(arrays[name], dt, device)
+                              for name, dt in dtypes.items()})
 
 
 def garbage_collect(table: VoxelBlockTable, weight_thresh: float = 0.0) -> VoxelBlockTable:

@@ -32,6 +32,12 @@ def read_host(x: torch.Tensor):
     return x.tolist()
 
 
+def read_host_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array on the host; counted."""
+    host_reads["count"] += 1
+    return x.cpu().numpy()
+
+
 def segment_sum_sorted(vals: torch.Tensor, seg_ids: torch.Tensor, num_segments: int):
     """Sum the rows of ``vals`` [c, D] over runs of equal ids: ``seg_ids``
     [c] is ascending with values in [0, num_segments). Returns

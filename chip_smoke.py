@@ -56,7 +56,24 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    the render at the last pose is within 2 voxels of the true depth, the
    table's invariants hold, no allocation failed and the mesh has more than
    10 000 triangles;
-7. solver at width: ``solve_sparse`` on a ring graph of 1200 poses (every
+7. recorded: the recorded-scan path at the same width. The 40 wire frames
+   are written as a ``.sens`` (raw colour, zlib depth, true poses) with the
+   port's ``save_sens``; every depth frame is decoded by the native codec and
+   by Python zlib (equal bit for bit, and equal to the wire frames); the CLI
+   (``bundlefusion_tpu_torch.__main__.main([file, "--out", dir])``) runs on
+   the file in this process: exit code 0, 40 of 40 frames valid, ATE RMSE
+   under 0.10 m, the ``.sens`` it writes back holds ``trajectory()``, a mesh
+   of more than 10 000 triangles; ``render`` (the raycast) at the last pose
+   is within 2 voxels of the true depth, as the splat is; an engine with
+   host paging (radius PAGE_RADIUS_M, a sweep every PAGE_EVERY frames) runs
+   PAGE_FRAMES frames and a natural sweep must page blocks out; the same run
+   saved midway with its host blocks, loaded and continued must equal the
+   unbroken run bit for bit (trajectory, flags, host keys, payload by key);
+   and the contract of ``tests/test_streaming_engine.py``: an engine paged
+   out entirely, frame 0 invalidated and one dispatch, paged back, against a
+   never-paged twin (after both collect their empty blocks: same keys,
+   weights equal, sdf within 1e-6);
+8. solver at width: ``solve_sparse`` on a ring graph of 1200 poses (every
    pose tied to its 3 predecessors by 16 correspondences, perturbed by
    0.01) with the direct and with the PCG linear step, by CUDA events, and
    the direct step's parts (sort, pair blocks, assembly, the LU alone
@@ -64,10 +81,11 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
-{...}}`` line (with ``solver_at_width`` inside) and last ``{"ok": true,
-"device": {...}}``. ``launches`` in the kernels line counts the slice phase,
-``launches_frontend`` the frontend phase's first run, ``launches_engine``
-the engine phase's first run; the counts are set to 0 just before each. In
+{...}}`` line (with ``solver_at_width`` inside), a ``{"recorded": {...}}``
+line and last ``{"ok": true, "device": {...}}``. ``launches`` in the kernels
+line counts the slice phase, ``launches_frontend`` the frontend phase's first
+run, ``launches_engine`` the engine phase's first run, ``launches_recorded``
+the whole recorded phase; the counts are set to 0 just before each. In
 the engine line ``host_reads_per_boundary`` counts the device -> host reads
 of each boundary (the pack's included), ``lu_zero_steps`` the direct solves
 that failed and became no update. In
@@ -93,6 +111,7 @@ and exits non-zero; without CUDA it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -110,6 +129,9 @@ REPS = 5
 PROFILE_FRAMES = 20
 FRONTEND_PROFILE_FRAMES = 5
 ATE_MAX_M = 0.10
+PAGE_FRAMES = 30      # frames of each paging run of phase_recorded
+PAGE_EVERY = 3        # its sweep cadence (frames)
+PAGE_RADIUS_M = 2.2   # its paging radius: pages out part of the synthetic scene
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 ROW_BYTES = 5 * 512 * 4     # sdf + weight + 3 colour channels of one payload row
@@ -1163,6 +1185,356 @@ def phase_solver_width(dev, n_frames=1200, reach=3, corrs_per_pair=16):
     return out
 
 
+def _wrap_attr(obj, name, make):
+    """Replace ``obj.name`` by ``make(original)``; returns a restorer."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    return lambda: setattr(obj, name, orig)
+
+
+def _payload_by_key(table) -> dict:
+    """{packed key: (sdf row, weight row)} as host copies."""
+    keys, slots = table.keys.cpu().numpy(), table.slots.cpu().numpy()
+    occ = keys != EMPTY_KEY
+    sdf, w = table.sdf.cpu().numpy(), table.weight.cpu().numpy()
+    return {int(k): (sdf[s], w[s]) for k, s in zip(keys[occ], slots[occ])}
+
+
+def _recorded_engine(dev, seq, app, bundling, sift_cfg, n_frames, **streaming):
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+
+    eng = BundleFusion(seq["intrinsics"], dataclasses.replace(app, **streaming), bundling,
+                       sift_cfg=sift_cfg, max_keyframes=n_frames // bundling.submap_size + 2,
+                       device=dev)
+    eng.warmup()
+    return eng
+
+
+def _feed(eng, seq, frames):
+    for f in frames:
+        eng.process_frame(seq["depth"][f], seq["color"][f])
+
+
+def phase_recorded(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_FRAMES,
+                   page_frames=PAGE_FRAMES, cli_args=()):
+    """The recorded-scan path; see the module docstring. ``bundling`` /
+    ``sift_cfg`` default to the engine's; ``cli_args`` are added to the
+    command line (none on the card)."""
+    import shutil
+    import tempfile
+
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.config import BundlingConfig
+
+    bundling = bundling or BundlingConfig()
+    intr = seq["intrinsics"]
+    out = {"frames": n_frames, "width": intr.width, "height": intr.height}
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    tmp = tempfile.mkdtemp(prefix="bf_recorded_")
+    try:
+        _phase_recorded_body(dev, seq, gt, app, bundling, sift_cfg, n_frames, page_frames,
+                             cli_args, tmp, out)
+    except Exception:
+        print(f"chip_smoke: phase_recorded so far: {json.dumps(out, default=str)[:20000]}",
+              file=sys.stderr)
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = dict(kernels.launch_counts)
+    if any(n == 0 for n in out["launches"].values()) or set(out["launches"]) != set(
+            kernels.SOURCES):
+        raise AssertionError(f"a TSDF kernel was not launched in this phase: {out['launches']}")
+    return out
+
+
+def _phase_recorded_body(dev, seq, gt, app, bundling, sift_cfg, n_frames, page_frames,
+                         cli_args, tmp, out):
+    """The checks of :func:`phase_recorded`, filling ``out``; files go to
+    ``tmp``."""
+    import contextlib
+    import io
+    import os
+    import zlib
+
+    from bundlefusion_tpu_torch import __main__ as cli
+    from bundlefusion_tpu_torch.io import native
+    from bundlefusion_tpu_torch.io.sens import SensData, SensFrame, load_sens, save_sens
+    from bundlefusion_tpu_torch.pipeline import online
+    from bundlefusion_tpu_torch.tsdf import streaming
+    from bundlefusion_tpu_torch.tsdf.table import check_invariants, garbage_collect
+
+    intr = seq["intrinsics"]
+    H, W = intr.height, intr.width
+    # ---- 1. the recording: raw colour, zlib depth, true poses ----
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = intr.fx, intr.fy, intr.cx, intr.cy
+    eye = np.eye(4, dtype=np.float32)
+    data = SensData(
+        version=4, sensor_name="synthetic", intrinsic_color=K, extrinsic_color=eye,
+        intrinsic_depth=K, extrinsic_depth=eye, compression_color=0, compression_depth=1,
+        color_width=W, color_height=H, depth_width=W, depth_height=H, depth_shift=1000.0,
+        frames=[SensFrame(gt[f].astype(np.float32), f, f,
+                          np.ascontiguousarray(seq["color"][f]).tobytes(),
+                          zlib.compress(np.ascontiguousarray(seq["depth"][f]).tobytes()))
+                for f in range(n_frames)])
+    sens_path = os.path.join(tmp, "recorded.sens")
+    save_sens(sens_path, data)
+    out["sens_bytes"] = os.path.getsize(sens_path)
+
+    # ---- 2. depth decode: the native codec against Python zlib ----
+    bufs = [fr.depth_bytes for fr in data.frames]
+    out["native_available"] = native.native_available()
+    out["native_library"] = (os.path.relpath(native.loaded_from, os.getcwd())
+                             if native.loaded_from else None)
+    t0 = time.perf_counter()
+    dec_native = native.decode_depth_batch(bufs, H, W, data.depth_shift)
+    out["decode_native_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n_frames
+    t0 = time.perf_counter()
+    dec_python = native.decode_depth_batch_python(bufs, H, W, data.depth_shift)
+    out["decode_python_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n_frames
+    if not out["native_available"]:
+        raise AssertionError("the native depth codec neither loads nor builds")
+    if not np.array_equal(dec_native.view(np.uint32), dec_python.view(np.uint32)):
+        raise AssertionError("native and Python zlib depth decodes differ")
+    wire = seq["depth"][:n_frames]
+    if not np.array_equal(np.isnan(dec_native), wire == 0) or not np.array_equal(
+            np.where(wire > 0, np.rint(dec_native * 1000.0), 0).astype(np.uint16), wire):
+        raise AssertionError("decoded depth does not round-trip to the wire frames")
+    out["decode_bitwise_equal"] = True
+
+    # ---- 3. the CLI on the recording, in this process ----
+    kept = []
+
+    def keep(cls):
+        class Kept(cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                kept.append(self)
+        return Kept
+
+    restore = _wrap_attr(online, "BundleFusion", keep)
+    log = io.StringIO()
+    cli_out = os.path.join(tmp, "cli")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main([sens_path, "--out", cli_out, *cli_args])
+        _sync()
+        out["cli_s"] = time.perf_counter() - t0
+    finally:
+        restore()
+    eng = kept[-1]
+    verdict = json.load(open(os.path.join(cli_out, "processed.txt")))
+    traj_txt = np.loadtxt(os.path.join(cli_out, "trajectory.txt")).reshape(-1, 4, 4)
+    reread = load_sens(os.path.join(cli_out, "recorded.sens")).gt_trajectory()
+    with open(os.path.join(cli_out, "recorded.ply"), "rb") as fh:
+        head = fh.read(400).decode("ascii", "replace")
+    triangles = int(head.split("element vertex ")[1].split()[0]) // 3
+    out["cli"] = {
+        "rc": rc,
+        "frames_per_s": verdict["fps"],
+        "valid_frames": verdict["numValidOptTransforms"],
+        "frames_run": verdict["numTransforms"],
+        "ate_rmse_m": verdict.get("ate_rmse_m"),
+        "mesh_triangles": triangles,
+        "max_keyframes": eng.G,
+        "warmup_and_finish_included_s": out.pop("cli_s"),
+    }
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}: {log.getvalue()[-2000:]}")
+    if not (verdict["numValidOptTransforms"] == verdict["numTransforms"] == n_frames):
+        raise AssertionError(f"CLI: {verdict['numValidOptTransforms']} of "
+                             f"{verdict['numTransforms']} frames valid ({n_frames} read)")
+    if not verdict.get("ate_rmse_m", np.inf) < ATE_MAX_M:
+        raise AssertionError(f"CLI ATE RMSE {verdict.get('ate_rmse_m')} m")
+    traj = eng.trajectory()
+    if not (reread.shape == (n_frames, 4, 4) and np.isfinite(reread).all()
+            and np.array_equal(reread, traj) and np.array_equal(traj_txt.astype(np.float32),
+                                                                traj)):
+        raise AssertionError("the trajectory written into the .sens is not trajectory()")
+    if not triangles > 10_000:
+        raise AssertionError(f"CLI mesh of {triangles} triangles")
+
+    # ---- 4. render: the raycast beside the splat, at the last pose ----
+    pose = traj[n_frames - 1]
+    rays, splat = {}, {}
+    rays["ms"] = _event_ms(lambda: rays.update(eng.render(pose)))
+    splat["ms"] = _event_ms(lambda: splat.update(eng._render(eng.table, pose)))
+    for name, r in (("raycast", rays), ("splat", splat)):
+        err, hit = _depth_err(r["depth"], seq, n_frames - 1)
+        out[name] = {"ms": r["ms"], "median_abs_err_m": err,
+                     "hit_share": float(torch.isfinite(r["depth"]).float().mean()),
+                     "hit_pixels_compared": hit}
+        if not err < 2 * eng.tsdf_params.voxel_size:
+            raise AssertionError(f"{name} median |depth - GT| {err} m >= 2 voxels")
+    out["raycast"]["ms_repeat"] = _event_ms(lambda: eng.render(pose))
+    del eng, kept[:]
+    torch.cuda.empty_cache()
+
+    # ---- 5. paging with natural sweeps; a checkpoint midway ----
+    radius = PAGE_RADIUS_M
+    paging = dict(streaming_enabled=True, streaming_radius=radius,
+                  streaming_every=PAGE_EVERY)
+    sweeps = []
+
+    def counted(fn, key):
+        def wrapped(table, store, *a, **k):
+            n0 = len(store)
+            r = fn(table, store, *a, **k)
+            sweeps[-1][key] = abs(len(store) - n0)
+            return r
+        return wrapped
+
+    def sweep_log(inner, eng):
+        def run():
+            sweeps.append({"frame": eng.frame_idx,
+                           "centre_frame": len(eng.sift_world) - 1})
+            _sync()
+            t0 = time.perf_counter()
+            inner()
+            _sync()
+            sweeps[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            sweeps[-1]["host_blocks"] = len(eng.host_blocks)
+            sweeps[-1]["host_mb"] = len(eng.host_blocks) * 5 * 512 * 4 / 1e6
+        return run
+
+    # the checkpoint is taken just after the first sweep that has a
+    # recorded pose to centre on (the first boundary's frames are
+    # recorded at the end of that boundary frame). save() records the
+    # open window's frames first, which moves the centre of later sweeps,
+    # so the unbroken run records them at the same frame
+    first_sweep = next(f for f in range(bundling.submap_size + 1, page_frames)
+                       if f % PAGE_EVERY == 0)
+    save_at = first_sweep + 1
+    undo = [_wrap_attr(streaming, "stream_in", lambda f: counted(f, "in")),
+            _wrap_attr(streaming, "stream_out", lambda f: counted(f, "out"))]
+    try:
+        pag = _recorded_engine(dev, seq, app, bundling, sift_cfg, page_frames, **paging)
+        pag._stream_update = sweep_log(pag._stream_update, pag)
+        t0 = time.perf_counter()
+        _feed(pag, seq, range(save_at))
+        pag._flush_pending()
+        _feed(pag, seq, range(save_at, page_frames))
+        pag.finish()
+        _sync()
+        out["paging_run_s"] = time.perf_counter() - t0
+    finally:
+        for u in undo:
+            u()
+    unbroken = {"traj": pag.trajectory(), "flags": list(pag.frame_valid),
+                "kf": pag.keyframe_valid.copy(), "payload": _payload_by_key(pag.table),
+                "host": sorted(pag.host_blocks.blocks)}
+    inv = check_invariants(pag.table)
+    out["paging"] = {"radius_m": radius, "every": PAGE_EVERY, "frames": page_frames,
+                     "sweeps": sweeps, "host_blocks_end": len(pag.host_blocks),
+                     "live_blocks_end": len(unbroken["payload"]),
+                     "alloc_failures": int(pag.table.num_alloc_failures),
+                     "reint_frames": pag.reint_frames}
+    if not any(s.get("out", 0) > 0 for s in sweeps):
+        raise AssertionError(f"no natural sweep paged a block out: {sweeps}")
+    if any(inv.values()) or int(pag.table.num_alloc_failures):
+        raise AssertionError(f"paging run: invariants {inv}, alloc failures "
+                             f"{int(pag.table.num_alloc_failures)}")
+    del pag
+    torch.cuda.empty_cache()
+
+    first = _recorded_engine(dev, seq, app, bundling, sift_cfg, page_frames, **paging)
+    _feed(first, seq, range(save_at))
+    ckpt = os.path.join(tmp, "engine.npz")
+    t0 = time.perf_counter()
+    first.save(ckpt)
+    save_s = time.perf_counter() - t0
+    host_before = {k: v[1].copy() for k, v in first.host_blocks.blocks.items()}
+    del first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = online.BundleFusion.load(ckpt, device=dev)
+    _sync()
+    load_s = time.perf_counter() - t0
+    host_kept = (list(resumed.host_blocks.blocks) == list(host_before) and all(
+        np.array_equal(resumed.host_blocks.blocks[k][1], w) for k, w in host_before.items()))
+    out["checkpoint"] = {"saved_at_frame": save_at, "bytes": os.path.getsize(ckpt),
+                         "save_s": save_s, "load_s": load_s,
+                         "host_blocks_saved": len(host_before)}
+    os.remove(ckpt)
+    _feed(resumed, seq, range(save_at, page_frames))
+    resumed.finish()
+    payload = _payload_by_key(resumed.table)
+    same_keys = payload.keys() == unbroken["payload"].keys()
+    diffs = {
+        "trajectory": not np.array_equal(resumed.trajectory(), unbroken["traj"],
+                                         equal_nan=True),
+        "frame_valid": list(resumed.frame_valid) != unbroken["flags"],
+        "keyframe_valid": not np.array_equal(resumed.keyframe_valid, unbroken["kf"]),
+        "host_keys": sorted(resumed.host_blocks.blocks) != unbroken["host"],
+        "table_keys": not same_keys,
+        "payload_rows": sum(1 for k, v in unbroken["payload"].items() if k in payload and not (
+            np.array_equal(payload[k][0], v[0]) and np.array_equal(payload[k][1], v[1]))),
+    }
+    same = not any(diffs.values())
+    out["checkpoint"]["resume_bitwise_equal"] = same
+    out["checkpoint"]["host_blocks_kept"] = host_kept
+    if not host_kept or not len(host_before):
+        raise AssertionError(f"the host store did not survive the checkpoint "
+                             f"({len(host_before)} blocks saved)")
+    if not same:
+        raise AssertionError(f"the resumed paging run differs from the unbroken one: {diffs}")
+    del resumed, unbroken, payload
+    torch.cuda.empty_cache()
+
+    # ---- the contract of tests/test_streaming_engine.py: a
+    # re-integration over a paged region against a never-paged twin ----
+    con = _recorded_engine(dev, seq, app, bundling, sift_cfg, page_frames,
+                           streaming_enabled=True, streaming_radius=6.0)
+    twin = _recorded_engine(dev, seq, app, bundling, sift_cfg, page_frames)
+    for e in (con, twin):
+        _feed(e, seq, range(page_frames))
+        e._flush_pending()
+    far = np.eye(4, dtype=np.float32)
+    far[:3, 3] = [50.0, 0.0, 0.0]
+    con.sift_world.append(far)
+    con._stream_update()
+    paged = len(con.host_blocks)
+    con.sift_world[-1] = con.sift_world[0].copy()
+    for e in (con, twin):
+        poses = np.stack(e.complete_traj)
+        valid = np.isfinite(poses).all(axis=(1, 2))
+        valid[0] = False
+        e.traj_manager.update_optimized_transforms(poses, valid)
+        e._tsdf_dispatch()
+    left_after_rows = len(con.host_blocks)
+    con._stream_update()
+    # a block allocated but never fused that sat on the host during the
+    # dispatch escaped its garbage collection (the reference's paging
+    # does the same); empty blocks hold no volume, so both are collected
+    # before the volumes are compared
+    empty = [int(((e.table.weight.amax(dim=1) <= 0) & (e.table.slot_keys != EMPTY_KEY)).sum())
+             for e in (con, twin)]
+    for e in (con, twin):
+        garbage_collect(e.table)
+    pa, pb = _payload_by_key(con.table), _payload_by_key(twin.table)
+    w_equal = pa.keys() == pb.keys() and all(np.array_equal(pa[k][1], pb[k][1]) for k in pa)
+    sdf_err = max((float(np.abs(pa[k][0] - pb[k][0]).max()) for k in pa if k in pb),
+                  default=float("inf"))
+    inv = check_invariants(con.table)
+    out["paging_contract"] = {"paged_out": paged, "paged_in_for_rows": paged - left_after_rows,
+                              "host_blocks_end": len(con.host_blocks),
+                              "empty_blocks_collected": {"paged": empty[0],
+                                                         "never_paged": empty[1]},
+                              "keys_equal": pa.keys() == pb.keys(), "weights_equal": w_equal,
+                              "sdf_max_abs_err": sdf_err,
+                              "alloc_failures": int(con.table.num_alloc_failures)}
+    if not paged or len(con.host_blocks) or not w_equal or not sdf_err <= SDF_ATOL:
+        raise AssertionError(f"paged and never-paged volumes differ: "
+                             f"{out['paging_contract']}")
+    if any(inv.values()) or int(con.table.num_alloc_failures):
+        raise AssertionError(f"contract: invariants {inv}, alloc failures "
+                             f"{int(con.table.num_alloc_failures)}")
+    del con, twin, pa, pb
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
@@ -1196,6 +1568,9 @@ def main() -> int:
     en = phase_engine(dev, seq, gt, app)
     en["phase_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    rec = phase_recorded(dev, seq, gt, app)
+    rec["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     en["solver_at_width"] = phase_solver_width(dev)
     en["solver_at_width"]["phase_s"] = time.perf_counter() - t0
     main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
@@ -1212,6 +1587,7 @@ def main() -> int:
             "launches": sl["launches"][name],
             "launches_frontend": fe["launches"][name],
             "launches_engine": en["launches"][name],
+            "launches_recorded": rec["launches"][name],
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -1238,6 +1614,7 @@ def main() -> int:
     print(json.dumps({"slice": sl}))
     print(json.dumps({"frontend": fe}))
     print(json.dumps({"engine": en}))
+    print(json.dumps({"recorded": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -389,3 +389,60 @@ def test_engine_twice_on_card(card_engine_runs):
     assert (a.reint_frames, a.reint_ops_total) == (b.reint_frames, b.reint_ops_total)
     np.testing.assert_array_equal(a.trajectory(), b.trajectory())
     np.testing.assert_array_equal(np.stack(a.sift_world), np.stack(b.sift_world))
+
+
+def _host_copy(t):
+    return ttab.VoxelBlockTable(**{k: v.cpu().clone() for k, v in t.__dict__.items()})
+
+
+def test_stream_out_in_on_card_matches_cpu(setup):
+    """Host paging of a CUDA table equals the same on a CPU table, bit for
+    bit: the same paged keys and payloads, the same table after the blocks
+    come back."""
+    from bundlefusion_tpu_torch.tsdf import streaming
+
+    base, _, _, P, _ = setup
+    card, host = base.clone(), _host_copy(base)
+    cam = P[0, :3, 3].cpu().numpy()
+    stores = [streaming.HostBlockStore(), streaming.HostBlockStore()]
+    for t, store in zip((card, host), stores):
+        streaming.stream_out(t, store, cam, 1.0, PARAMS.voxel_size)
+    assert list(stores[0].blocks) == list(stores[1].blocks) and len(stores[0]) > 0
+    for k, rows in stores[1].blocks.items():
+        for a, b in zip(stores[0].blocks[k], rows):
+            np.testing.assert_array_equal(a, b)
+    for name, v in host.__dict__.items():
+        assert torch.equal(getattr(card, name).cpu(), v), name
+    some = list(stores[0].blocks)[:5]
+    for t, store in zip((card, host), stores):
+        streaming.stream_in_keys(t, store, some)
+        streaming.stream_in(t, store, cam, 10.0, PARAMS.voxel_size)
+    assert len(stores[0]) == len(stores[1]) == 0
+    for name, v in host.__dict__.items():
+        assert torch.equal(getattr(card, name).cpu(), v), name
+    assert all(v == 0 for v in ttab.check_invariants(card).values())
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.05])
+def test_raycast_on_card_matches_cpu(setup, shift):
+    """The raycast on the card within 1e-5 of the CPU's (hit masks equal but
+    for ulp-edge pixels, at most 0.1 %)."""
+    from bundlefusion_tpu_torch.tsdf.raycast import raycast
+
+    base, _, _, P, intr = setup
+    pose = P[1].clone()
+    pose[0, 3] += shift
+    rc = raycast(base, intr, pose, PARAMS)
+    rh = raycast(_host_copy(base), intr, pose.cpu(), PARAMS)
+    dc, dh = rc["depth"].cpu().numpy(), rh["depth"].numpy()
+    hc, hh = np.isfinite(dc), np.isfinite(dh)
+    assert hh.sum() > 0.3 * dh.size and (hc != hh).mean() <= 1e-3
+    both = hc & hh
+    np.testing.assert_allclose(dc[both], dh[both], rtol=0, atol=1e-5)
+    for key in ("color", "points", "normals"):
+        a, b = rc[key].cpu().numpy()[both], rh[key].numpy()[both]
+        fa, fb = np.isfinite(a).all(-1), np.isfinite(b).all(-1)
+        # a normal is nan where a neighbour missed (silhouettes) on both
+        assert (fa != fb).mean() <= 1e-2 and fa.mean() > 0.5, key
+        ok = fa & fb
+        np.testing.assert_allclose(a[ok], b[ok], rtol=0, atol=1e-5, err_msg=key)

@@ -117,3 +117,28 @@ def test_starve_matches(frames):
     ttab.starve(tt, 1.0)
     np.testing.assert_array_equal(tt.weight.numpy(), np.asarray(jt.weight))
     np.testing.assert_allclose(tt.color.numpy(), np.asarray(jt.color), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("sign,cap", [(1.0, 4096), (-1.0, 4096), (1.0, 64)])
+def test_integrate_frame_matches(frames, sign, cap):
+    """The standalone update ``integrate_frame`` over the
+    ``visible_block_indices`` list (``tests/test_tsdf_integrate.py``'s
+    entry point): fuse frames 0 and 1 into the same tables, then apply
+    frame 2 with ``sign``. Weights equal; sdf and colour within ATOL."""
+    D, C, P = frames
+    jt, tt = _tables(D, P)
+    for i in (0, 1, 2):
+        s = 1.0 if i < 2 else sign
+        jpos, _ = jint.visible_block_indices(jt, INTR, jnp.asarray(P[i]), PARAMS, cap)
+        tpos, _ = tint.visible_block_indices(tt, TINTR, torch.from_numpy(P[i]), TPARAMS, cap)
+        np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+        jt = jint.integrate_frame(jt, jnp.asarray(D[i]), jnp.asarray(C[i]), INTR,
+                                  jnp.asarray(P[i]), PARAMS, jpos, sign=s)
+        tint.integrate_frame(tt, torch.from_numpy(D[i]), torch.from_numpy(C[i]), TINTR,
+                             torch.from_numpy(P[i]), TPARAMS, tpos, sign=s)
+    jw = np.asarray(jt.weight)
+    assert (jw > 0).sum() > 1000
+    np.testing.assert_array_equal(tt.weight.numpy(), jw)
+    np.testing.assert_allclose(tt.sdf.numpy(), np.asarray(jt.sdf), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(tt.color.numpy(), np.asarray(jt.color), rtol=0, atol=ATOL)
+    assert float(tt.weight[-1].abs().max()) == 0.0   # the dummy row stays zero

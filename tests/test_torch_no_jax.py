@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX package,
-and ``chip_smoke.py`` refuses to run without a CUDA card."""
+"""The port stands alone: importing it loads neither JAX nor the JAX package
+(nor ``cv2``, which only the JPEG / PNG and image-writing paths import, where
+they are used), and ``chip_smoke.py`` refuses to run without a CUDA card."""
 
 import os
 import subprocess
@@ -18,7 +19,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "bundlefusion_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "bundlefusion_tpu", "cv2"))
 print(len(names), bad)
 missing = [m for m in EXPECTED if "bundlefusion_tpu_torch." + m not in names]
 assert not missing, missing
@@ -28,12 +29,14 @@ assert not missing, missing
 MODULES = [
     "__main__", "config", "kernels",
     "geometry.camera", "geometry.kabsch", "geometry.lie",
-    "io.ply", "io.synthetic",
+    "io.binary_dump", "io.checkpoint", "io.native", "io.ply", "io.sens", "io.sensors",
+    "io.synthetic", "io.tum",
     "ops.filters", "ops.image", "ops.matching", "ops.resample", "ops.sift",
     "pipeline.frames", "pipeline.frontend", "pipeline.online", "pipeline.trajectory",
     "solver.dense_term", "solver.gn_pcg", "solver.residuals",
-    "tsdf.apply_ops", "tsdf.integrate", "tsdf.marching_cubes", "tsdf.splat", "tsdf.table",
-    "utils.metrics", "utils.timing",
+    "tsdf.apply_ops", "tsdf.integrate", "tsdf.marching_cubes", "tsdf.raycast", "tsdf.splat",
+    "tsdf.streaming", "tsdf.table",
+    "utils.metrics", "utils.timing", "utils.visualization",
 ]
 
 

@@ -53,6 +53,10 @@ def test_trajectories_and_intrinsics_equal():
                                       jsyn.orbit_trajectory(n, noise=noise))
         np.testing.assert_array_equal(tsyn.loop_trajectory(n, odom_noise=noise),
                                       jsyn.loop_trajectory(n, odom_noise=noise))
+        for loops in (1, 3):
+            np.testing.assert_array_equal(
+                tsyn.multiloop_trajectory(n, n_loops=loops, odom_noise=noise),
+                jsyn.multiloop_trajectory(n, n_loops=loops, odom_noise=noise))
     for w, h in ((640, 480), (160, 120)):
         assert tsyn.default_intrinsics(w, h).__dict__ == jsyn.default_intrinsics(w, h).__dict__
 

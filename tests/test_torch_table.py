@@ -163,3 +163,49 @@ def test_lookup_and_invariant_detection():
     errs_t = ttab.check_invariants(bad)
     errs_j = jtab.check_invariants(jt._replace(slot_keys=jnp.asarray(bad.slot_keys.numpy())))
     assert errs_t == errs_j and errs_t["slot_keys_mismatch"] == 1
+
+
+@pytest.mark.parametrize("window", [256, 96, 0])
+def test_defrag_prefix_matches(window):
+    """``defrag_prefix`` on the pattern of ``tests/test_tsdf_table.py``
+    (two interleaved allocation batches with payload fingerprints, a free
+    that punches holes; the full window, a partial one, an empty one), then
+    a later allocation: every array equal to the reference's."""
+    rng = np.random.default_rng(0)
+    jt = jtab.create_table(1024, 256)
+    for lo, hi in ((-8, 0), (0, 8)):
+        c = rng.integers(lo, hi, size=(40, 3)).astype(np.int32)
+        jt = jtab.allocate(jt, jnp.asarray(c), jnp.ones(40, bool))
+    sk = np.asarray(jt.slot_keys[:256])
+    live = sk != int(jtab.EMPTY_KEY)
+    fp = np.where(live, sk % 1000, 0).astype(np.float32)
+    jt = jt._replace(
+        sdf=jt.sdf.at[:256].set(jnp.asarray(fp)[:, None] * jnp.ones((1, 512))),
+        weight=jt.weight.at[:256].set(jnp.asarray(live, jnp.float32)[:, None]
+                                      * jnp.ones((1, 512))),
+        color=jt.color.at[:256].set(jnp.asarray(fp)[:, None] * jnp.ones((1, 1536)) * 0.5),
+    )
+    jt = jtab.free_blocks(jt, (jt.keys != jtab.EMPTY_KEY) & (jt.keys % 7 == 0))
+    tt = ttab.table_from_numpy({f: np.asarray(v) for f, v in jt._asdict().items()}, "cpu")
+    assert_tables_equal(jt, tt)
+    jt = jtab.defrag_prefix(jt, window)
+    ttab.defrag_prefix(tt, window)
+    assert_tables_equal(jt, tt)
+    assert_clean(tt)
+    c3 = rng.integers(20, 28, size=(20, 3)).astype(np.int32)
+    jt = jtab.allocate(jt, jnp.asarray(c3), jnp.ones(20, bool))
+    ttab.allocate(tt, torch.from_numpy(c3), torch.ones(20, dtype=torch.bool))
+    assert_tables_equal(jt, tt)
+    assert_clean(tt)
+
+
+def test_table_from_numpy_checks_slot_keys():
+    jt = jtab.allocate(jtab.create_table(256, 128), jnp.asarray([[1, 2, 3], [4, 5, 6]]),
+                       jnp.ones(2, bool))
+    arrays = {f: np.asarray(v) for f, v in jt._asdict().items()}
+    tt = ttab.table_from_numpy(arrays, "cpu")
+    assert_tables_equal(jt, tt)
+    assert tt.slot_geo.shape == (129, ttab.SLOT_GEO_LANES)
+    bad = dict(arrays, slot_keys=np.roll(arrays["slot_keys"], 1))
+    with pytest.raises(ValueError, match="slot_keys"):
+        ttab.table_from_numpy(bad, "cpu")
