@@ -2,7 +2,7 @@
 
 The JAX package stays the reference; this package mirrors its subpackage
 layout (``geometry``, ``io``, ``ops``, ``tsdf``, ``solver``, ``pipeline``,
-``utils``) and function names so each counterpart is easy to find. Plain
+``parallel``, ``utils``) and function names so each counterpart is easy to find. Plain
 tensor code is PyTorch; the one Pallas kernel of the JAX package (the fused
 TSDF integrate / de-integrate sweep) is three hand-written CUDA kernels for
 Hopper under ``kernels/``, built with ``nvcc`` on first use.
@@ -12,8 +12,11 @@ SIFT frontend, match filters, correspondences, bundle adjustment and the
 submap boundary, TSDF fusion with re-integration, splat render, mesh) and
 the recorded-scan path (``.sens`` / TUM / binary-dump readers and the native
 depth codec in ``io``, raycast ``render``, host paging of TSDF blocks,
-engine checkpoints, the CLI's file inputs). Multi-device meshes are not
-ported.
+engine checkpoints, the CLI's file inputs), the multi-device path
+(``parallel``: the engine's ``mesh=`` on ``torch.distributed`` ranks, the
+sharded solver and matching, sharded TSDF payload rows), the serialized
+device-time replay (``profile_every``) and the correspondence evaluator
+(``utils.corr_eval``).
 
 This package imports ``torch`` and never ``jax`` or ``bundlefusion_tpu``.
 """

@@ -14,8 +14,9 @@ records as ``tm_*``, the paged blocks as ``hb_*`` and the header as
 JAX package; the one field whose shape differs, the table's ``slot_geo``
 ([N+1, 128] there, [N+1, 4] here), keeps its lanes 0-3, and ``slot_keys``
 is checked against ``keys`` / ``slots``. A file the port writes holds the
-port's ``slot_geo`` and need not load into the JAX package. Multi-device
-meshes are not ported.
+port's ``slot_geo`` and need not load into the JAX package. A checkpoint
+holds no device topology: ``load_engine(path, mesh=)`` restores one onto a
+mesh, every rank reading the file.
 """
 
 from __future__ import annotations
@@ -156,10 +157,16 @@ def _read_tree(data, tags: dict, name: str, template) -> dict:
     return flat
 
 
-def load_engine(path: str, device=None):
+def load_engine(path: str, mesh=None, device=None):
     """Reconstruct an engine from a checkpoint written by :func:`save_engine`
     or by the JAX package's ``save_engine``, on ``device`` (the CUDA card
-    unless the caller names another)."""
+    unless the caller names another, or the mesh's device).
+
+    ``mesh``: optional ``parallel.mesh.Mesh``. Every rank calls this and
+    reads the file: each takes the keyframe graph and the host scheduler's
+    state, so the replicas start identical; rank 0 also takes the window,
+    the frame archive, the voxel table and the paged blocks, which only it
+    holds."""
     from bundlefusion_tpu_torch.config import AppConfig, BundlingConfig
     from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
     from bundlefusion_tpu_torch.ops.sift import SiftConfig
@@ -180,19 +187,22 @@ def load_engine(path: str, device=None):
     eng = BundleFusion(
         CameraIntrinsics(**meta["intr"]), AppConfig(**meta["app"]),
         BundlingConfig(**meta["bundling"]), sift_cfg=SiftConfig(**meta["sift"]),
-        max_keyframes=meta["max_keyframes"], device=device,
+        max_keyframes=meta["max_keyframes"], mesh=mesh, device=device,
     )
     dev, tags = eng.device, meta["tags"]
-    trees = {name: _read_tree(data, tags, name, getattr(eng, name)) for name in _TREES}
-    eng.local = local_state_from_numpy(_nested(eng.local, trees["local"]), dev)
+    # the trees this rank holds (on a mesh, the keyframe graph alone off rank 0)
+    trees = {name: _read_tree(data, tags, name, getattr(eng, name)) for name in _TREES
+             if getattr(eng, name) is not None}
     eng.glob = global_state_from_numpy(_nested(eng.glob, trees["glob"]), dev)
-    store = trees["store"]
-    eng.store = FrameStore(
-        depth_mm=torch.from_numpy(store["depth_mm"].astype(np.uint16).view(np.int16).copy())
-        .to(dev).view(torch.uint16),
-        color=torch.from_numpy(store["color"].astype(np.uint8)).to(dev),
-    )
-    eng.table = table_from_numpy(trees["table"], dev)
+    if eng._is_root:
+        eng.local = local_state_from_numpy(_nested(eng.local, trees["local"]), dev)
+        store = trees["store"]
+        eng.store = FrameStore(
+            depth_mm=torch.from_numpy(store["depth_mm"].astype(np.uint16).view(np.int16).copy())
+            .to(dev).view(torch.uint16),
+            color=torch.from_numpy(store["color"].astype(np.uint8)).to(dev),
+        )
+        eng.table = table_from_numpy(trees["table"], dev)
 
     eng.submap_base = torch.as_tensor(data["submap_base"], dtype=torch.float32, device=dev)
     eng.keyframe_valid = data["keyframe_valid"].copy()
@@ -210,7 +220,7 @@ def load_engine(path: str, device=None):
     eng._anchor_slot = meta.get("anchor_slot", 0)
     eng.kf_valid_dev = torch.as_tensor(eng.keyframe_valid, device=dev)
 
-    if "hb_keys" in data:
+    if "hb_keys" in data and eng._is_root:
         if eng.host_blocks is None:
             raise ValueError("checkpoint holds host-paged blocks but streaming is off")
         eng.host_blocks.insert(data["hb_keys"], data["hb_sdf"], data["hb_weight"],

@@ -1,6 +1,6 @@
 """Online BundleFusion engine: the full per-frame loop.
 
-Port of ``bundlefusion_tpu/pipeline/online.py`` (single device):
+Port of ``bundlefusion_tpu/pipeline/online.py``:
 
 - ``process_frame``: ``_frame_step`` (wire decode and frame archive, SIFT
   detect / describe, keypoint and dense-cache stores, matching against the
@@ -28,8 +28,21 @@ Port of ``bundlefusion_tpu/pipeline/online.py`` (single device):
   position, the paged keys the allocation skips, and a stream-in of the
   paged blocks a re-integration row could touch before it runs.
 
-Not ported: multi-device meshes and the serialized device-time replay
-(``profile_every``): give ``timing`` a ``sync`` callable instead.
+- the multi-device path (``mesh=``, a ``parallel.mesh.Mesh`` of more than
+  one rank): one process per rank, each constructing the engine with the
+  same arguments and calling the same methods with the same frames. Rank 0
+  alone runs the per-frame path, the TSDF, the render and the boundary's
+  local phase (submap solve, verification, keyframe fusion, rollover); it
+  broadcasts what the JAX engine puts onto its mesh, and every rank then
+  runs the boundary's global phase on its replica of the keyframe graph:
+  keyframe-chunked global matching and the corr-chunked Gauss-Newton / PCG
+  (``parallel/ba_sharded.py``), the pruning rounds and the composition.
+  There is no collective on a frame that is not a boundary;
+- the serialized device-time replay: every ``profile_every``-th frame after
+  frame 0 drains the device and times each stage behind a device
+  synchronisation into ``device_timing`` (``dev_frame_step``, ``dev_tsdf``
+  or ``dev_tsdf_rows``, ``dev_render``, ``dev_submap``); ``timing`` takes a
+  ``sync`` callable for the same on every frame.
 
 The JAX engine fuses each phase into one jitted program, donates its state
 and retires a boundary's results one submap late to hide TPU dispatch
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -91,7 +105,9 @@ from bundlefusion_tpu_torch.solver.gn_pcg import (
     apply_pair_kill_store,
     corr_counts_per_frame_sorted,
     guided_kill_mask,
+    guided_kill_mask_store,
     invalidate_pair_sorted,
+    max_residual,
     max_residual_sorted,
     presort_corrs,
     solve_bundle,
@@ -101,6 +117,7 @@ from bundlefusion_tpu_torch.solver.gn_pcg import (
 from bundlefusion_tpu_torch.solver.residuals import (
     CorrStore,
     compact_corrs,
+    corr_counts_per_frame,
     corr_store_from_numpy,
     create_corr_store,
     invalidate_image_pair,
@@ -120,6 +137,11 @@ from bundlefusion_tpu_torch.utils import host_reads, owned_tensor, read_host
 from bundlefusion_tpu_torch.utils.timing import TimingLog, stage
 
 REINT_ROWS = 5  # max re-integration rows per frame (2 ops each, budget 10)
+# the fused keyframe's fields, in the order a mesh boundary broadcasts them
+FUSED_FIELDS = ("pos", "scale", "depth", "response", "valid", "desc")
+CACHE_FIELDS = tuple(f.name for f in dataclasses.fields(DenseCache))
+# the per-pair outputs of the global matching that a mesh boundary gathers
+MATCH_FIELDS = ("pair_valid", "inlier_mask", "idx_cur", "idx_prev", "p_cur", "p_prev")
 
 
 @dataclass
@@ -204,6 +226,26 @@ def preprocess_frame(depth, color, sift_hw, int_hw):
     return intensity_sift, depth_sift, depth_int, color_int
 
 
+_CHECKSUM_CHUNK = 1 << 24  # words per step of a checksum (bounds its memory)
+_WORD = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _checksum(t: torch.Tensor) -> torch.Tensor:
+    """[2] int64 checksum of a tensor's bits: the sum of its words and their
+    position-weighted sum (wrapping), the same on any device for the same
+    bits."""
+    flat = t.detach().contiguous().reshape(-1)
+    if flat.dtype == torch.bool:
+        flat = flat.to(torch.uint8)
+    words = flat.view(_WORD[flat.element_size()])
+    out = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for s0 in range(0, words.shape[0], _CHECKSUM_CHUNK):
+        w = words[s0:s0 + _CHECKSUM_CHUNK].to(torch.int64)
+        pos = torch.arange(s0, s0 + w.shape[0], dtype=torch.int64, device=t.device) % 65521 + 1
+        out += torch.stack([w.sum(), (w * pos).sum()])
+    return out
+
+
 class BundleFusion:
     """The engine. Feed RGB-D frames; read back poses / renders / mesh."""
 
@@ -218,11 +260,35 @@ class BundleFusion:
         device=None,
     ):
         """Same signature as the JAX engine plus the ``device`` the state
-        lives on: the CUDA card unless the caller names another (with no
-        card and no ``device`` this raises). A multi-device ``mesh`` is not
-        supported yet."""
-        if mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported yet")
+        lives on: the CUDA card unless the caller names another, or the
+        mesh's device (with no card and no ``device`` this raises).
+
+        ``mesh``: optional ``parallel.mesh.Mesh``; with more than one rank
+        the boundary's global problem is computed over the ranks (see the
+        module docstring) and the keyframe graph (``glob``,
+        ``kf_valid_dev``) is replicated on every rank: each builds it from
+        the same arguments, where the JAX engine places it with
+        ``_shard_global``. Only rank 0 holds the
+        window, the frame archive and the voxel table; its return values,
+        ``trajectory()``, ``render`` and ``extract_mesh`` are the engine's
+        results. On the other ranks ``process_frame`` returns ``{"pose":
+        None, "valid": None}``, ``trajectory()`` holds the frames of the
+        retired boundaries only, and the map methods raise. A 1-rank mesh
+        takes the single-device path."""
+        self.mesh = mesh
+        self._use_mesh = mesh is not None and mesh.size > 1
+        # rank 0 of a mesh, or the engine of a single device
+        self._is_root = not self._use_mesh or mesh.rank == 0
+        if self._use_mesh:
+            n_dev = mesh.size
+            G_eff = max_keyframes or bundling.max_num_images
+            if G_eff % n_dev:
+                raise ValueError(f"keyframe capacity {G_eff} must divide the mesh size {n_dev}")
+            if bundling.max_global_corr % n_dev:
+                raise ValueError(f"max_global_corr {bundling.max_global_corr} must divide the "
+                                 f"mesh size {n_dev}")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = torch.device(device) if device is not None else default_device()
         self.app = app
         self.bundling = bundling
@@ -251,7 +317,9 @@ class BundleFusion:
             depth_min=app.sensor_depth_min,
             depth_max=app.sensor_depth_max,
         )
-        self.table = create_table(app.hash_key_capacity, app.hash_num_sdf_blocks, self.device)
+        # the map lives on rank 0 only
+        self.table = (create_table(app.hash_key_capacity, app.hash_num_sdf_blocks, self.device)
+                      if self._is_root else None)
         self.vis_cap = app.visible_blocks_cap
 
         dense = DenseVerifyParams(
@@ -312,7 +380,7 @@ class BundleFusion:
         )
 
         # ---- device-resident state ----
-        self.local = self._fresh_local()
+        self.local = self._fresh_local() if self._is_root else None
         self.glob = self._fresh_global()
         self.keyframe_valid = np.zeros(self.G, bool)
         # device twin of keyframe_valid: what the boundary computes with
@@ -321,13 +389,19 @@ class BundleFusion:
         # the current submap's anchor pose; stays on the device
         self.submap_base = torch.eye(4, dtype=torch.float32, device=self.device)
         self.timing = TimingLog()
+        # the serialized device-time replay (the reference's CUDATimer): every
+        # ``profile_every``-th frame after frame 0 drains the device and
+        # times each stage behind a synchronisation into ``device_timing``;
+        # 0 turns it off
+        self.profile_every = 0
+        self.device_timing = TimingLog(sync=self._sync_device)
 
-        # device-resident frame archive for re-integration
+        # device-resident frame archive for re-integration (rank 0's)
         sub_len = self.S - 1
         self.frame_cap = min(app.max_frames, self.G * sub_len + self.S)
-        self.store: FrameStore = create_frame_store(
+        self.store: Optional[FrameStore] = create_frame_store(
             self.frame_cap, self.intr_int.height, self.intr_int.width, self.device
-        )
+        ) if self._is_root else None
 
         # packed per-submap readback layout (see ``_submap_step``)
         NF = self.G * sub_len
@@ -354,7 +428,7 @@ class BundleFusion:
         # sorted device-side array of paged keys the allocation skips
         self.host_blocks = None
         self._blocked_dev = None
-        if app.streaming_enabled:
+        if app.streaming_enabled and self._is_root:
             from bundlefusion_tpu_torch.tsdf.streaming import HostBlockStore
 
             self.host_blocks = HostBlockStore()
@@ -384,6 +458,26 @@ class BundleFusion:
             depth_max=app.render_depth_max,
             visible_cap=min(self.vis_cap, 8192),
         )
+        if self._use_mesh:
+            from bundlefusion_tpu_torch.parallel.ba_sharded import make_replicated_chunk_solver
+
+            self._sharded_solve = make_replicated_chunk_solver(
+                mesh, self.G, bundling.max_global_corr, self.global_solver)
+
+    # ------------------------------------------------------------------
+    def _sync_device(self) -> None:
+        """Wait for the engine's device (nothing to wait for on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _device_stage(self, name: str, on: bool):
+        """A stage of the serialized replay (``device_timing``), or nothing."""
+        return self.device_timing.stage(name) if on else nullcontext()
+
+    def _need_map(self, what: str) -> None:
+        if not self._is_root:
+            raise RuntimeError(f"{what}: rank {self.mesh.rank} of the mesh holds no map; "
+                               f"rank 0 does")
 
     # ------------------------------------------------------------------
     def _fresh_local(self) -> LocalState:
@@ -503,6 +597,8 @@ class BundleFusion:
         frame i + 1 can upload while frame i computes (the analog of the
         reference's sensor thread). Returns a handle to pass to
         :meth:`process_frame` as ``depth`` (with ``color=None``)."""
+        if not self._is_root:
+            return None, None  # the other ranks of a mesh take no frames
         depth_u16, color_u8 = self._to_wire(depth, color)
         d = torch.from_numpy(np.ascontiguousarray(depth_u16).view(np.int16))
         c = torch.from_numpy(np.ascontiguousarray(color_u8))
@@ -750,22 +846,69 @@ class BundleFusion:
         world = self.submap_base @ self.local.rel
         return torch.cat([world.reshape(-1), self.local.valid.to(torch.float32)])
 
-    def _submap_step(self, g: int, last_world: torch.Tensor) -> torch.Tensor:
+    def _submap_step(self, g: int, last_world) -> torch.Tensor:
         """Submap boundary: local solve -> verify -> fuse keyframe ->
-        global match -> global solve (+ max-residual pruning) -> rollover,
-        on ``self.local`` / ``self.glob`` / ``self.kf_valid_dev`` /
-        ``self.submap_base``.
+        rollover (the local phase, rank 0), then insert the keyframe ->
+        global match -> global solve (+ max-residual pruning) -> compose
+        (the global phase, every rank), on ``self.local`` / ``self.glob`` /
+        ``self.kf_valid_dev`` / ``self.submap_base``. On a mesh rank 0
+        broadcasts the local phase's outputs with ``submap_base`` and
+        ``last_world`` between the two (the other ranks pass None as
+        ``last_world``).
 
         Returns ``pack``, the flat float32 host-readback buffer [chained
         world S*16 | frame valid S | kf_valid G | submap_ok, matched,
         pairs_dropped | composed trajectory G*sub_len*16 | composed valid
         G*sub_len]: everything the host scheduler consumes, fetched in one
         transfer per submap."""
-        b, log, dev = self.bundling, self.timing, self.device
-        loc, glob, kf_valid = self.local, self.glob, self.kf_valid_dev
-        S, G = self.S, self.G
+        log, dev, S = self.timing, self.device, self.S
         reads0, kabsch_reads, prune_rounds = host_reads["count"], 0, 0
+        p = self._submap_local(last_world) if self._is_root else None
+        if self._use_mesh:
+            with stage(log, "time_submap_broadcast"):
+                p = self._broadcast_boundary(p)
+        self._insert_keyframe(g, p)
 
+        kf_valid = self.kf_valid_dev
+        matched = torch.ones((), dtype=torch.bool, device=dev)
+        pairs_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        if g > 0:
+            glob_phase = self._submap_global if self._use_mesh else self._global_single
+            matched, pairs_dropped, kabsch_reads, prune_rounds = glob_phase(g)
+
+        with stage(log, "time_submap_pack"):
+            # the overlap frame's solved pose is the next window's base
+            kf_world_g = pose_to_matrix(self.glob.poses[g])
+            submap_ok = p["submap_ok"]
+            overlap_world = torch.where(submap_ok, kf_world_g @ p["local_world"][S - 1],
+                                        p["last_world"])
+            comp, comp_ok = self._compose(self.glob.poses, kf_valid)
+            pack = torch.cat([
+                p["pack_a"],
+                kf_valid.to(torch.float32),
+                torch.stack([submap_ok.to(torch.float32), matched.to(torch.float32),
+                             pairs_dropped.to(torch.float32)]),
+                comp.reshape(-1),
+                comp_ok.to(torch.float32),
+            ])
+            self.submap_base = overlap_world
+        self.boundary_stats.append({
+            "g": g, "prune_rounds": prune_rounds,
+            # + 1: the pack's read-back at retirement
+            "host_reads": host_reads["count"] - reads0 + kabsch_reads + 1,
+        })
+        return pack
+
+    def _submap_local(self, last_world) -> dict:
+        """The boundary's local phase (``self.local`` -> the keyframe row):
+        the submap's bundle adjustment, its dense verification, keyframe
+        fusion, the window's rollover. Returns what the global phase takes:
+        ``fused`` (keyframe fields), ``cache_row`` (dense-cache fields),
+        ``local_world`` [S, 4, 4], ``lv_out`` [S], ``submap_ok`` [],
+        ``base`` (the window's anchor pose), ``last_world`` and ``pack_a``
+        [chained world S*16 | frame valid S]."""
+        b, log, loc = self.bundling, self.timing, self.local
+        S = self.S
         with stage(log, "time_submap_local_solve"):
             init = matrix_to_pose(loc.rel)
             lv = loc.valid
@@ -786,101 +929,214 @@ class BundleFusion:
                 n_checked, n_failed = _verify_local_pairs(local_world, lv, loc.cache,
                                                           self.intr_cache, self.verify_params)
                 submap_ok = submap_ok & ((n_checked == 0) | (n_failed <= n_checked // 3))
-        glob.local_traj[g] = local_world
-        glob.local_valid[g] = lv & submap_ok
 
         with stage(log, "time_submap_fuse"):
             # fuse the keyframe from the solved submap's feature tracks
             # (anchor frame 0; SIFTImageManager::fuseToGlobal)
-            gk = glob.keys
             fused = fuse_keyframe(loc.keys, loc.corrs, local_world, 0, self.intr_sift,
-                                  gk.keys_per_frame)
-            for name in ("pos", "scale", "depth", "response", "valid", "desc"):
-                getattr(gk, name)[g] = fused[name]     # desc: cast to bfloat16 by the copy
-            gk.frame_valid[g] = submap_ok
-            copy_cache_frame(glob.cache, g, loc.cache, 0)
-            glob.poses[g] = matrix_to_pose(self.submap_base)
-            kf_valid[g] = submap_ok
-
-        matched = torch.ones((), dtype=torch.bool, device=dev)
-        pairs_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-        if g > 0:
-            with stage(log, "time_submap_global_match"):
-                mf = match_and_filter(g, gk, glob.cache, self.intr_sift, self.intr_cache,
-                                      self.frontend_global)
-                kabsch_reads = mf["kabsch_host_reads"]
-                matched = mf["pair_valid"].any()
-                # an unmatched keyframe has no inliers: nothing is appended
-                add_to_residuals(glob.corrs, mf, g,
-                                 torch.arange(G, dtype=torch.int32, device=dev))
-                kf_valid[g] = kf_valid[g] & matched
-            ks = torch.arange(G, device=dev)
-            kv = kf_valid & (ks <= g)
-            prev_poses = glob.poses  # trajectory before this solve
-            with stage(log, "time_submap_global_solve"):
-                # ONE sort per boundary; the pruning rounds below only flip
-                # validity bits in the presorted working set
-                prob = presort_corrs(glob.corrs, G, self.global_solver)
-                sposes = solve_sparse_presorted(prev_poses, kv, prob, self.global_solver)
-                pairs_dropped = prob.sc.dropped
-
-            # residual pruning, several rounds per solve
-            # (SBA::removeMaxResidualCUDA, SBA.cpp:169-204: the reference
-            # prunes once per solve but solves every frame). A round that
-            # prunes nothing leaves the state as it is, so the loop ends.
-            with stage(log, "time_submap_prune"):
-                for _ in range(b.max_prune_rounds):
-                    mr, fa, fb = max_residual_sorted(sposes, prob)
-                    mr_h, fa_h, fb_h = read_host(torch.stack([mr, fa.to(mr.dtype),
-                                                              fb.to(mr.dtype)]))
-                    if not (mr_h > b.opt_max_res_thresh and fa_h >= 0 and fb_h >= 0):
-                        break
-                    prune_rounds += 1
-                    invalidate_image_pair(glob.corrs, int(fa_h), int(fb_h))
-                    prob = invalidate_pair_sorted(prob, int(fa_h), int(fb_h))
-                    if b.use_guided_remove:
-                        # NEW_GUIDED_REMOVE: when badly off, also remove
-                        # long-range pairs of the newest keyframe whose
-                        # residual is high now AND was > 1.5x higher under
-                        # the previous trajectory (a bad loop closure)
-                        killed = guided_kill_mask(sposes, prev_poses, prob, g, mr, G)
-                        apply_pair_kill_store(glob.corrs, killed, G)
-                        prob = apply_pair_kill_sorted(prob, killed, G)
-                    sposes = solve_sparse_presorted(prev_poses, kv, prob, self.global_solver)
-
-            # comprehensive frame invalidation: valid keyframes left without
-            # correspondences after pruning lose their pose
-            # (CheckForInvalidFramesCU); counts over the presorted working
-            # set, into which the prune kills are mirrored
-            if b.use_comprehensive_frame_invalidation:
-                counts = corr_counts_per_frame_sorted(prob, G)
-                kf_valid &= (counts > 0) | (ks == 0) | (ks > g)
-            glob.poses = sposes
-
-        with stage(log, "time_submap_pack"):
-            # the overlap frame's solved pose is the next window's base
-            kf_world_g = pose_to_matrix(glob.poses[g])
-            overlap_world = torch.where(submap_ok, kf_world_g @ local_world[S - 1], last_world)
-            world_chained = self.submap_base @ loc.rel
-            comp, comp_ok = self._compose(glob.poses, kf_valid)
-            pack = torch.cat([
-                world_chained.reshape(-1),
-                lv.to(torch.float32),
-                kf_valid.to(torch.float32),
-                torch.stack([submap_ok.to(torch.float32), matched.to(torch.float32),
-                             pairs_dropped.to(torch.float32)]),
-                comp.reshape(-1),
-                comp_ok.to(torch.float32),
-            ])
+                                  self.glob.keys.keys_per_frame)
+            # the keyframe store holds bfloat16 descriptors: the same cast
+            # the store's copy would make
+            fused["desc"] = fused["desc"].to(torch.bfloat16)
+            out = {
+                "fused": fused,
+                "cache_row": {n: getattr(loc.cache, n)[0] for n in CACHE_FIELDS},
+                "local_world": local_world,
+                "lv_out": lv & submap_ok,
+                "submap_ok": submap_ok,
+                "base": self.submap_base,
+                "last_world": self._as_pose(last_world),
+                "pack_a": torch.cat([(self.submap_base @ loc.rel).reshape(-1),
+                                     lv.to(torch.float32)]),
+            }
             # rollover: the overlap frame becomes slot 0 of the fresh submap
             self._rollover_local()
-            self.submap_base = overlap_world
-        self.boundary_stats.append({
-            "g": g, "prune_rounds": prune_rounds,
-            # + 1: the pack's read-back at retirement
-            "host_reads": host_reads["count"] - reads0 + kabsch_reads + 1,
-        })
-        return pack
+        return out
+
+    def _boundary_tensors(self, p: Optional[dict]) -> List[torch.Tensor]:
+        """The local phase's outputs as the flat list a mesh boundary
+        broadcasts; without ``p`` (ranks other than 0), empty tensors of the
+        same shapes and dtypes, taken from the keyframe graph."""
+        glob, dev = self.glob, self.device
+        if p is not None:
+            return ([p["fused"][n] for n in FUSED_FIELDS]
+                    + [p["cache_row"][n] for n in CACHE_FIELDS]
+                    + [p[n] for n in ("local_world", "lv_out", "submap_ok", "base",
+                                      "last_world", "pack_a")])
+        return ([torch.empty_like(getattr(glob.keys, n)[0]) for n in FUSED_FIELDS]
+                + [torch.empty_like(getattr(glob.cache, n)[0]) for n in CACHE_FIELDS]
+                + [torch.empty_like(glob.local_traj[0]), torch.empty_like(glob.local_valid[0]),
+                   torch.empty((), dtype=torch.bool, device=dev),
+                   torch.empty((4, 4), dtype=torch.float32, device=dev),
+                   torch.empty((4, 4), dtype=torch.float32, device=dev),
+                   torch.empty((self.S * 17,), dtype=torch.float32, device=dev)])
+
+    def _broadcast_boundary(self, p: Optional[dict]) -> dict:
+        """Rank 0's local-phase outputs on every rank, in one broadcast."""
+        from bundlefusion_tpu_torch.parallel.mesh import broadcast_tensors
+
+        ts = broadcast_tensors(self.mesh, self._boundary_tensors(p))
+        nf, nc = len(FUSED_FIELDS), len(CACHE_FIELDS)
+        rest = dict(zip(("local_world", "lv_out", "submap_ok", "base", "last_world", "pack_a"),
+                        ts[nf + nc:]))
+        return {"fused": dict(zip(FUSED_FIELDS, ts[:nf])),
+                "cache_row": dict(zip(CACHE_FIELDS, ts[nf:nf + nc])), **rest}
+
+    def _insert_keyframe(self, g: int, p: dict) -> None:
+        """Write boundary ``g``'s keyframe into the keyframe graph: solved
+        window, fused keys, dense-cache row, anchor pose, validity."""
+        glob, submap_ok = self.glob, p["submap_ok"]
+        glob.local_traj[g] = p["local_world"]
+        glob.local_valid[g] = p["lv_out"]
+        gk = glob.keys
+        for name in FUSED_FIELDS:
+            getattr(gk, name)[g] = p["fused"][name]
+        gk.frame_valid[g] = submap_ok
+        for name, row in p["cache_row"].items():
+            getattr(glob.cache, name)[g] = row
+        glob.poses[g] = matrix_to_pose(p["base"])
+        self.kf_valid_dev[g] = submap_ok
+
+    def _global_single(self, g: int):
+        """The global phase of boundary ``g`` > 0 on one device: match the
+        new keyframe against all earlier ones, solve the keyframe graph
+        (one sort, then pruning rounds that flip validity bits), invalidate
+        keyframes left without correspondences. Returns (matched,
+        pairs_dropped, Kabsch host reads, prune rounds)."""
+        b, log, dev, G = self.bundling, self.timing, self.device, self.G
+        glob, kf_valid = self.glob, self.kf_valid_dev
+        prune_rounds = 0
+        with stage(log, "time_submap_global_match"):
+            mf = match_and_filter(g, glob.keys, glob.cache, self.intr_sift, self.intr_cache,
+                                  self.frontend_global)
+            matched = mf["pair_valid"].any()
+            # an unmatched keyframe has no inliers: nothing is appended
+            add_to_residuals(glob.corrs, mf, g, torch.arange(G, dtype=torch.int32, device=dev))
+            kf_valid[g] = kf_valid[g] & matched
+        ks = torch.arange(G, device=dev)
+        kv = kf_valid & (ks <= g)
+        prev_poses = glob.poses  # trajectory before this solve
+        with stage(log, "time_submap_global_solve"):
+            # ONE sort per boundary; the pruning rounds below only flip
+            # validity bits in the presorted working set
+            prob = presort_corrs(glob.corrs, G, self.global_solver)
+            sposes = solve_sparse_presorted(prev_poses, kv, prob, self.global_solver)
+            pairs_dropped = prob.sc.dropped
+
+        # residual pruning, several rounds per solve
+        # (SBA::removeMaxResidualCUDA, SBA.cpp:169-204: the reference
+        # prunes once per solve but solves every frame). A round that
+        # prunes nothing leaves the state as it is, so the loop ends.
+        with stage(log, "time_submap_prune"):
+            for _ in range(b.max_prune_rounds):
+                mr, fa, fb = max_residual_sorted(sposes, prob)
+                pair = self._prune_pair(mr, fa, fb)
+                if pair is None:
+                    break
+                prune_rounds += 1
+                invalidate_image_pair(glob.corrs, *pair)
+                prob = invalidate_pair_sorted(prob, *pair)
+                if b.use_guided_remove:
+                    # NEW_GUIDED_REMOVE: when badly off, also remove
+                    # long-range pairs of the newest keyframe whose
+                    # residual is high now AND was > 1.5x higher under
+                    # the previous trajectory (a bad loop closure)
+                    killed = guided_kill_mask(sposes, prev_poses, prob, g, mr, G)
+                    apply_pair_kill_store(glob.corrs, killed, G)
+                    prob = apply_pair_kill_sorted(prob, killed, G)
+                sposes = solve_sparse_presorted(prev_poses, kv, prob, self.global_solver)
+
+        # comprehensive frame invalidation: valid keyframes left without
+        # correspondences after pruning lose their pose
+        # (CheckForInvalidFramesCU); counts over the presorted working
+        # set, into which the prune kills are mirrored
+        if b.use_comprehensive_frame_invalidation:
+            counts = corr_counts_per_frame_sorted(prob, G)
+            kf_valid &= (counts > 0) | (ks == 0) | (ks > g)
+        glob.poses = sposes
+        return matched, pairs_dropped, mf["kabsch_host_reads"], prune_rounds
+
+    def _prune_pair(self, mr, fa, fb):
+        """The image pair a pruning round removes, as host ints, or None
+        when the largest residual is within ``opt_max_res_thresh``."""
+        mr_h, fa_h, fb_h = read_host(torch.stack([mr, fa.to(mr.dtype), fb.to(mr.dtype)]))
+        if not (mr_h > self.bundling.opt_max_res_thresh and fa_h >= 0 and fb_h >= 0):
+            return None
+        return int(fa_h), int(fb_h)
+
+    def _match_chunk(self, g: int) -> dict:
+        """Global matching over the mesh: this rank runs the cascade of
+        keyframe ``g`` against its ``G / n`` keyframe slots, and the per-pair
+        outputs are all-gathered in slot order."""
+        from bundlefusion_tpu_torch.parallel.mesh import all_gather
+
+        glob, mesh = self.glob, self.mesh
+        Gl = self.G // mesh.size
+        mf = match_and_filter(g, glob.keys, glob.cache, self.intr_sift, self.intr_cache,
+                              self.frontend_global,
+                              slots=range(mesh.rank * Gl, (mesh.rank + 1) * Gl))
+        out = {f: all_gather(mesh, mf[f]) for f in MATCH_FIELDS}
+        out.update(cur_slot=g, num_keys_per_frame=mf["num_keys_per_frame"],
+                   kabsch_host_reads=mf["kabsch_host_reads"])
+        return out
+
+    def _submap_global(self, g: int):
+        """The global phase of boundary ``g`` > 0 on every rank of the mesh
+        (the global branch of the JAX engine's ``submap_global``; its
+        keyframe insert is :meth:`_insert_keyframe`, its composition the end
+        of :meth:`_submap_step`): keyframe-chunked matching, the
+        corr-chunked solve, pruning rounds that re-solve the store,
+        comprehensive invalidation. Every decision here reads replicated
+        values, so all ranks take the same branches. Returns (matched,
+        pairs_dropped, Kabsch host reads, prune rounds)."""
+        b, log, dev, G = self.bundling, self.timing, self.device, self.G
+        glob, kf_valid = self.glob, self.kf_valid_dev
+        prune_rounds = 0
+        with stage(log, "time_submap_global_match"):
+            mf = self._match_chunk(g)
+            matched = mf["pair_valid"].any()
+            add_to_residuals(glob.corrs, mf, g, torch.arange(G, dtype=torch.int32, device=dev))
+            kf_valid[g] = kf_valid[g] & matched
+        ks = torch.arange(G, device=dev)
+        kv = kf_valid & (ks <= g)
+        prev_poses = glob.poses
+        with stage(log, "time_submap_global_solve"):
+            sposes, pairs_dropped = self._sharded_solve(prev_poses, kv, glob.corrs)
+        with stage(log, "time_submap_prune"):
+            for _ in range(b.max_prune_rounds):
+                mr, ci = max_residual(sposes, glob.corrs)
+                pair = self._prune_pair(mr, glob.corrs.img_i[ci], glob.corrs.img_j[ci])
+                if pair is None:
+                    break
+                prune_rounds += 1
+                invalidate_image_pair(glob.corrs, *pair)
+                if b.use_guided_remove:
+                    killed = guided_kill_mask_store(sposes, prev_poses, glob.corrs, g, mr, G)
+                    apply_pair_kill_store(glob.corrs, killed, G)
+                sposes, _ = self._sharded_solve(prev_poses, kv, glob.corrs)
+        if b.use_comprehensive_frame_invalidation:
+            counts = corr_counts_per_frame(glob.corrs, G)
+            kf_valid &= (counts > 0) | (ks == 0) | (ks > g)
+        glob.poses = sposes
+        return matched, pairs_dropped, mf["kabsch_host_reads"], prune_rounds
+
+    def replicas_agree(self) -> bool:
+        """Whether every rank holds the same bits of the keyframe graph
+        (poses, ``kf_valid``, the corr store, the keyframe stores and
+        dense cache, the solved windows): one all-reduce of per-tensor
+        checksums. All ranks must call it; True without a mesh."""
+        if not self._use_mesh:
+            return True
+        from bundlefusion_tpu_torch.parallel.mesh import all_reduce
+
+        glob = self.glob
+        tensors = [self.kf_valid_dev, glob.poses, glob.local_traj, glob.local_valid]
+        for part in (glob.keys, glob.cache, glob.corrs):
+            tensors += [getattr(part, f.name) for f in dataclasses.fields(part)]
+        sums = torch.stack([_checksum(t) for t in tensors]).reshape(-1)
+        both = all_reduce(self.mesh, torch.cat([sums, -sums]), op=torch.distributed.ReduceOp.MAX)
+        n = sums.shape[0]
+        return bool(torch.equal(both[:n], sums) and torch.equal(-both[n:], sums))
 
     # ------------------------------------------------------------------
     def warmup(self) -> float:
@@ -893,25 +1149,29 @@ class BundleFusion:
         handles, first-call set-up) is paid here. A zero frame contributes no
         TSDF blocks, no correspondences and no keyframe validity; the window
         and the keyframe graph are replaced by fresh ones at the end, so the
-        state is a fresh engine's. Returns elapsed seconds."""
+        state is a fresh engine's. On a mesh every rank calls it (the
+        boundary's collectives run once); rank 0 alone runs the per-frame
+        paths. Returns elapsed seconds."""
         assert self.frame_idx == 0, "warmup() must run before the first frame"
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            from bundlefusion_tpu_torch import kernels
-
-            kernels.build_all()
         dev = self.device
-        h, w = self.intr_input.height, self.intr_input.width
-        T_dev, valid_dev = self._frame_step(np.zeros((h, w), np.uint16),
-                                            np.zeros((h, w, 3), np.uint8), 0, 0)
-        T_world, valid = self._read_pose(T_dev, valid_dev)
-        # zero depth -> no candidate blocks: the TSDF / gc warmups change nothing
-        self._tsdf_fast(0, T_world, valid)
-        packed = np.zeros((REINT_ROWS, 34), np.float32)
-        packed[:, 2:18] = packed[:, 18:34] = np.eye(4, dtype=np.float32).reshape(-1)
-        self._tsdf_rows(packed, 0, T_world, valid)
-        garbage_collect(self.table)
-        self._render(self.table, T_world)
+        T_dev = None
+        if self._is_root:
+            if dev.type == "cuda":
+                from bundlefusion_tpu_torch import kernels
+
+                kernels.build_all()
+            h, w = self.intr_input.height, self.intr_input.width
+            T_dev, valid_dev = self._frame_step(np.zeros((h, w), np.uint16),
+                                                np.zeros((h, w, 3), np.uint8), 0, 0)
+            T_world, valid = self._read_pose(T_dev, valid_dev)
+            # zero depth -> no candidate blocks: the TSDF / gc warmups change nothing
+            self._tsdf_fast(0, T_world, valid)
+            packed = np.zeros((REINT_ROWS, 34), np.float32)
+            packed[:, 2:18] = packed[:, 18:34] = np.eye(4, dtype=np.float32).reshape(-1)
+            self._tsdf_rows(packed, 0, T_world, valid)
+            garbage_collect(self.table)
+            self._render(self.table, T_world)
         self._submap_step(1, T_dev)
         # revalidation path: match + append against an all-invalid store
         glob = self.glob
@@ -921,14 +1181,15 @@ class BundleFusion:
         add_to_residuals(glob.corrs, mf, 0, torch.arange(self.G, dtype=torch.int32, device=dev))
         # finish() path: standalone global solves + composition
         kfv = self.kf_valid_dev
-        solve_sparse(glob.poses, kfv, glob.corrs, self.global_solver)
+        self._solve_at_end(kfv, dense=False)
         if self.bundling.use_global_dense_at_end:
-            self._solve_dense_at_end(kfv)
+            self._solve_at_end(kfv, dense=True)
         self._compose(glob.poses, kfv)
-        self._pack_tail()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.local = self._fresh_local()
+        if self._is_root:
+            self._pack_tail()
+        self._sync_device()
+        if self._is_root:
+            self.local = self._fresh_local()
         self.glob = self._fresh_global()
         self.kf_valid_dev.zero_()
         self.submap_base = torch.eye(4, dtype=torch.float32, device=dev)
@@ -948,7 +1209,8 @@ class BundleFusion:
           color: [H, W, 3] float32 in [0, 1] (or uint8).
 
         Returns dict: ``pose`` (4x4, cam-to-world estimate), ``valid``, as
-        tensors on the engine's device.
+        tensors on the engine's device (None on the mesh's ranks other than
+        0, which take part in the boundaries only).
         """
         f = self.frame_idx
         ft = self.timing.new_frame(f)
@@ -958,40 +1220,28 @@ class BundleFusion:
         slot = f % sub_len
         is_boundary = f > 0 and slot == 0
         cur_slot = sub_len if is_boundary else slot  # position in current buffer
+        # serialized device-time replay frame: drain the device first, so
+        # each stage's synchronised time below is that stage's alone
+        prof = self.profile_every > 0 and f > 0 and f % self.profile_every == 0
+        if prof:
+            self._sync_device()
 
         with self.timing.stage("time_solve", ft):
             self._retire_submap()
-            if is_boundary and self.num_keyframes >= self.G:
+            if is_boundary and self.num_keyframes >= self.G and self._is_root:
                 # past keyframe capacity: no rollover will happen, and this
                 # frame's frame step will overwrite the anchor slot; record
                 # the finishing window's chained poses first
                 self._record_window_tail(f)
 
-        with self.timing.stage("time_frame_step", ft):
-            depth_dev, color_dev = depth if color is None else self.upload_frame(depth, color)
-            store_slot = self._store_slot(f)
-            T_world_dev, valid_dev = self._frame_step(depth_dev, color_dev, cur_slot, store_slot)
-            # the TSDF dispatch's op signs are host lists: the frame's one read
-            T_world, valid = self._read_pose(T_world_dev, valid_dev)
-
-        # fused TSDF dispatch: re-integration budget + current frame's fuse
-        # in one kernel sweep (reference order: reintegrate() then
-        # integrate(), DepthSensing.cpp:854-902 + :1047)
-        with self.timing.stage("time_re_integrate", ft):
-            if self.app.integration_enabled:
-                self._tsdf_dispatch(store_slot, T_world, valid)
-
-        if self.render_every and f % self.render_every == 0:
-            with self.timing.stage("time_visualize", ft):
-                self._render_frame(f, T_world)
-
-        # host paging sweep (opt-in): far blocks out, returning blocks in
-        if self.app.streaming_enabled and f > 0 and f % self.app.streaming_every == 0:
-            self._stream_update()
+        T_world_dev = valid_dev = None
+        if self._is_root:
+            T_world_dev, valid_dev = self._frame_tsdf_render(f, ft, depth, color, cur_slot, prof)
 
         if is_boundary:
             with self.timing.stage("time_submap_step", ft):
-                dispatched = self._dispatch_submap(T_world_dev)
+                with self._device_stage("dev_submap", prof):
+                    dispatched = self._dispatch_submap(T_world_dev)
             self._window_base = f
             self._anchor_slot = 0 if dispatched else sub_len
 
@@ -1001,6 +1251,48 @@ class BundleFusion:
         with self.timing.stage("time_solve", ft):
             self._retire_submap()
         return {"pose": T_world_dev, "valid": valid_dev}
+
+    def _frame_tsdf_render(self, f: int, ft, depth, color, cur_slot: int, prof: bool):
+        """Rank 0's per-frame path of ``process_frame``: frame step, the
+        fused TSDF dispatch, the render, the paging sweep. Returns (T_world,
+        valid) on the device."""
+        with self.timing.stage("time_frame_step", ft):
+            depth_dev, color_dev = depth if color is None else self.upload_frame(depth, color)
+            store_slot = self._store_slot(f)
+            with self._device_stage("dev_frame_step", prof):
+                T_world_dev, valid_dev = self._frame_step(depth_dev, color_dev, cur_slot,
+                                                          store_slot)
+            # the TSDF dispatch's op signs are host lists: the frame's one read
+            T_world, valid = self._read_pose(T_world_dev, valid_dev)
+
+        # fused TSDF dispatch: re-integration budget + current frame's fuse
+        # in one kernel sweep (reference order: reintegrate() then
+        # integrate(), DepthSensing.cpp:854-902 + :1047)
+        with self.timing.stage("time_re_integrate", ft):
+            if self.app.integration_enabled:
+                if prof:
+                    # the replay keeps the rows (re-integration) dispatches
+                    # apart: they cost several times the plain fuse
+                    rows_before = self.reint_frames
+                    self._sync_device()
+                    t0 = time.perf_counter()
+                    self._tsdf_dispatch(store_slot, T_world, valid)
+                    self._sync_device()
+                    self.device_timing.add(
+                        "dev_tsdf_rows" if self.reint_frames > rows_before else "dev_tsdf",
+                        time.perf_counter() - t0)
+                else:
+                    self._tsdf_dispatch(store_slot, T_world, valid)
+
+        if self.render_every and f % self.render_every == 0:
+            with self.timing.stage("time_visualize", ft):
+                with self._device_stage("dev_render", prof):
+                    self._render_frame(f, T_world)
+
+        # host paging sweep (opt-in): far blocks out, returning blocks in
+        if self.app.streaming_enabled and f > 0 and f % self.app.streaming_every == 0:
+            self._stream_update()
+        return T_world_dev, valid_dev
 
     # ------------------------------------------------------------------
     def _stream_update(self):
@@ -1055,7 +1347,7 @@ class BundleFusion:
     def _flush_pending(self):
         """Retire everything in flight (end of stream / before evaluation)."""
         self._retire_submap()
-        if self._recorded_upto < self.frame_idx:
+        if self._recorded_upto < self.frame_idx and self._is_root:
             # trailing frames of the current (partial) window
             self._record_window_tail(self.frame_idx)
 
@@ -1095,8 +1387,8 @@ class BundleFusion:
         # periodic corr-store compaction: residual pruning / frame
         # invalidation only MARK corrs dead, so long runs leak append
         # capacity; reclaiming every 64 submaps keeps the cursor bounded by
-        # the live count
-        if g > 0 and g % 64 == 0:
+        # the live count (not on a mesh, as in the JAX engine)
+        if g > 0 and g % 64 == 0 and not self._use_mesh:
             compact_corrs(self.glob.corrs)
 
         pack = self._submap_step(g, last_world_dev)
@@ -1200,6 +1492,22 @@ class BundleFusion:
             self.complete_traj[f] = comp[f] if ok[f] else nanT
         self._push_optimized_to_manager()
 
+    def _solve_at_end(self, kv: torch.Tensor, dense: bool) -> torch.Tensor:
+        """One of ``finish``'s global solves of the keyframe graph (sparse,
+        or with the dense term): on a mesh rank 0 solves and broadcasts the
+        poses, so the replicas stay identical. Returns the poses."""
+        if not self._is_root:
+            poses = torch.empty_like(self.glob.poses)
+        elif dense:
+            poses = self._solve_dense_at_end(kv)
+        else:
+            poses, _ = solve_sparse(self.glob.poses, kv, self.glob.corrs, self.global_solver)
+        if self._use_mesh:
+            from bundlefusion_tpu_torch.parallel.mesh import broadcast_tensors
+
+            poses, = broadcast_tensors(self.mesh, [poses])
+        return poses
+
     def _solve_dense_at_end(self, kv: torch.Tensor):
         """The final global pass with dense depth weight 15 and the
         photometric weight (USE_GLOBAL_DENSE_AT_END, OnlineBundler.cpp:177-189;
@@ -1222,7 +1530,8 @@ class BundleFusion:
             sub_len = self.S - 1
             if self.frame_idx % sub_len != 1 and self.frame_idx > 0:
                 # trailing partial submap: the window is already sized; solve it
-                self._dispatch_submap(self._as_pose(self.sift_world[-1]))
+                self._dispatch_submap(self._as_pose(self.sift_world[-1]) if self._is_root
+                                      else None)
                 self._retire_submap()
             n_extra = (
                 extra_solves
@@ -1234,13 +1543,11 @@ class BundleFusion:
                     kv = self.keyframe_valid.copy()
                     kv[self.num_keyframes:] = False
                     kv = torch.as_tensor(kv, device=self.device)
-                    if self.bundling.use_global_dense_at_end and it == n_extra - 1:
-                        self.glob.poses = self._solve_dense_at_end(kv)
-                    else:
-                        self.glob.poses, _ = solve_sparse(self.glob.poses, kv, self.glob.corrs,
-                                                          self.global_solver)
+                    self.glob.poses = self._solve_at_end(
+                        kv, dense=self.bundling.use_global_dense_at_end and it == n_extra - 1)
                 self._update_complete_trajectory()
-                self._drain_reintegration()
+                if self._is_root:
+                    self._drain_reintegration()
 
     # ------------------------------------------------------------------
     def render(self, cam_to_world, raycast_params=None):
@@ -1249,6 +1556,7 @@ class BundleFusion:
         (the per-frame render of ``process_frame`` is the splat)."""
         from bundlefusion_tpu_torch.tsdf.raycast import RaycastParams, raycast
 
+        self._need_map("render")
         rp = raycast_params or RaycastParams(
             ray_increment_factor=self.app.sdf_ray_increment_factor,
             depth_min=self.app.render_depth_min,
@@ -1260,6 +1568,7 @@ class BundleFusion:
     def extract_mesh(self):
         from bundlefusion_tpu_torch.tsdf.marching_cubes import extract_mesh
 
+        self._need_map("extract_mesh")
         return extract_mesh(self.table, self.tsdf_params.voxel_size)
 
     def trajectory(self) -> np.ndarray:
@@ -1273,16 +1582,24 @@ class BundleFusion:
         """Checkpoint the complete engine state (voxel table with its
         host-paged blocks, keyframe and correspondence stores, frame
         archive, trajectories, scheduler) into one ``.npz``. Resume with
-        :meth:`BundleFusion.load`."""
+        :meth:`BundleFusion.load`. On a mesh every rank calls it: rank 0
+        writes the file and the others wait until it is written."""
         from bundlefusion_tpu_torch.io.checkpoint import save_engine
 
-        save_engine(self, path)
+        if self._is_root:
+            save_engine(self, path)
+        if self._use_mesh:
+            from bundlefusion_tpu_torch.parallel.mesh import barrier
+
+            barrier(self.mesh)
 
     @staticmethod
-    def load(path: str, device=None) -> "BundleFusion":
+    def load(path: str, mesh=None, device=None) -> "BundleFusion":
         """An engine restored from a checkpoint written by :meth:`save` or
         by the JAX package's ``BundleFusion.save``, on ``device`` (the CUDA
-        card unless the caller names another)."""
+        card unless the caller names another, or the mesh's device). A
+        checkpoint holds no topology: pass ``mesh`` to restore it onto a
+        mesh (every rank calls this and reads the file)."""
         from bundlefusion_tpu_torch.io.checkpoint import load_engine
 
-        return load_engine(path, device=device)
+        return load_engine(path, mesh=mesh, device=device)

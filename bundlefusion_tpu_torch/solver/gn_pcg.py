@@ -720,18 +720,10 @@ def corr_counts_per_frame_sorted(prob: PresortedProblem, num_frames: int):
     return counts[:, 0].to(torch.int32)
 
 
-def guided_kill_mask(poses_now, poses_prev, prob: PresortedProblem, cur_frame, mr,
-                     num_frames: int, min_sep: int = 10, mr_gate: float = 0.2,
-                     prev_factor: float = 1.5):
-    """NEW_GUIDED_REMOVE analog (CUDASolverBundling.cpp:298-427) over the
-    presorted working set: per-pair kill flags [N*N+1] for long-range pairs
-    of the newest keyframe whose residual is high NOW and was
-    ``prev_factor`` x higher under the previous trajectory (a bad loop
-    closure, not drift)."""
-    sc, n = prob.sc, prob.bound
+def _guided_kill(poses_now, poses_prev, v, img_i, img_j, p_i, p_j, cur_frame, mr,
+                 num_frames: int, min_sep: int, mr_gate: float, prev_factor: float):
     NN = num_frames * num_frames
     hi_thresh = torch.clamp(0.2 * mr, 0.1, 0.4)
-    v, img_i, img_j, p_i, p_j = sc.valid[:n], sc.img_i[:n], sc.img_j[:n], sc.p_i[:n], sc.p_j[:n]
 
     def max_abs(poses):
         return _masked_residuals(poses, img_i, img_j, p_i, p_j, v)[0].abs().amax(-1)
@@ -748,6 +740,31 @@ def guided_kill_mask(poses_now, poses_prev, prob: PresortedProblem, cur_frame, m
     killed[_pid(img_i, img_j, qual, num_frames, NN)] = True
     killed[NN] = False
     return killed
+
+
+def guided_kill_mask(poses_now, poses_prev, prob: PresortedProblem, cur_frame, mr,
+                     num_frames: int, min_sep: int = 10, mr_gate: float = 0.2,
+                     prev_factor: float = 1.5):
+    """NEW_GUIDED_REMOVE analog (CUDASolverBundling.cpp:298-427) over the
+    presorted working set: per-pair kill flags [N*N+1] for long-range pairs
+    of the newest keyframe whose residual is high NOW and was
+    ``prev_factor`` x higher under the previous trajectory (a bad loop
+    closure, not drift)."""
+    sc, n = prob.sc, prob.bound
+    return _guided_kill(poses_now, poses_prev, sc.valid[:n], sc.img_i[:n], sc.img_j[:n],
+                        sc.p_i[:n], sc.p_j[:n], cur_frame, mr, num_frames, min_sep, mr_gate,
+                        prev_factor)
+
+
+def guided_kill_mask_store(poses_now, poses_prev, corrs: CorrStore, cur_frame, mr,
+                           num_frames: int, min_sep: int = 10, mr_gate: float = 0.2,
+                           prev_factor: float = 1.5):
+    """:func:`guided_kill_mask` over the whole store (the multi-device
+    boundary prunes the store, not a presorted working set)."""
+    n = _cursor_bound(corrs)
+    return _guided_kill(poses_now, poses_prev, corrs.img_i[:n] >= 0, corrs.img_i[:n],
+                        corrs.img_j[:n], corrs.p_i[:n], corrs.p_j[:n], cur_frame, mr,
+                        num_frames, min_sep, mr_gate, prev_factor)
 
 
 def apply_pair_kill_store(corrs: CorrStore, killed, num_frames: int) -> CorrStore:

@@ -77,15 +77,32 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    pose tied to its 3 predecessors by 16 correspondences, perturbed by
    0.01) with the direct and with the PCG linear step, by CUDA events, and
    the direct step's parts (sort, pair blocks, assembly, the LU alone
-   beside its float32 bound). Both must reach 1e-3 of the initial cost.
+   beside its float32 bound). Both must reach 1e-3 of the initial cost;
+9. mesh: the multi-device path on 2 ``gloo`` ranks on the card, started
+   once by ``parallel.mesh.run_ranks`` (spawn; the kernels are built
+   before): (a) ``solve_sparse_sharded`` on phase 8's ring graph against
+   single-device ``solve_sparse(linear="pcg")`` (poses within 2e-3, cost
+   down by 1e3, no pair dropped, the engine's chunk solver equal, ms per
+   solve and bytes all-gathered per GN step); (b) ``make_sharded_apply`` at
+   the default table, 100 032 rows per rank, at 11 ops and 1 op, gathered
+   and held against the single-table op (weights equal, sdf / colour within
+   1e-6), each rank launching the three kernels; (c) ``BundleFusion(...,
+   mesh=)`` at ``AppConfig()`` / ``BundlingConfig()`` over the 40 frames
+   through the public entry points: 40 of 40 valid, ATE under 0.10 m beside
+   phase 6's, ``replicas_agree()`` after every boundary, per boundary the
+   local phase, broadcast, ``match_chunk`` and sharded-solve ms (a wait
+   around every stage of a boundary frame) and the bytes broadcast,
+   frames/s, peak memory per rank.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
 {...}}`` line (with ``solver_at_width`` inside), a ``{"recorded": {...}}``
-line and last ``{"ok": true, "device": {...}}``. ``launches`` in the kernels
-line counts the slice phase, ``launches_frontend`` the frontend phase's first
-run, ``launches_engine`` the engine phase's first run, ``launches_recorded``
-the whole recorded phase; the counts are set to 0 just before each. In
+line, a ``{"mesh": {...}}`` line and last ``{"ok": true, "device":
+{...}}``. ``launches`` in the kernels line counts the slice phase,
+``launches_frontend`` the frontend phase's first run, ``launches_engine`` the
+engine phase's first run, ``launches_recorded`` the whole recorded phase,
+``launches_mesh`` rank 0's mesh engine run (c); the counts are set to 0 just
+before each. In
 the engine line ``host_reads_per_boundary`` counts the device -> host reads
 of each boundary (the pack's included), ``lu_zero_steps`` the direct solves
 that failed and became no update. In
@@ -1535,6 +1552,278 @@ def _phase_recorded_body(dev, seq, gt, app, bundling, sift_cfg, n_frames, page_f
     torch.cuda.empty_cache()
 
 
+MESH_RANKS = 2         # phase_mesh: gloo ranks on cuda:0
+MESH_POSE_ATOL = 2e-3  # sharded vs single-device solve (tests/test_sharded.py)
+
+
+def _mesh_solver(mesh, dev, n):
+    """(a) ``solve_sparse_sharded`` on the ring graph of phase_solver_width
+    (``n`` poses) against the single-device PCG solve (rank 0 computes that
+    too)."""
+    from bundlefusion_tpu_torch.io.synthetic import ring_pose_graph
+    from bundlefusion_tpu_torch.parallel.ba_sharded import (
+        make_replicated_chunk_solver,
+        shard_corrs,
+        solve_sparse_sharded,
+    )
+    from bundlefusion_tpu_torch.parallel.mesh import barrier
+    from bundlefusion_tpu_torch.solver import gn_pcg
+    from bundlefusion_tpu_torch.solver.residuals import corr_store_from_numpy
+
+    gt, arrays = ring_pose_graph(n, 16, 3)
+    rng = np.random.default_rng(0)
+    init = gt + rng.normal(size=gt.shape).astype(np.float32) * 0.01
+    init[0] = gt[0]
+    store = corr_store_from_numpy(arrays, dev)
+    local = shard_corrs(store, mesh)
+    poses0 = torch.as_tensor(init, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    params = gn_pcg.SolverParams(num_gn=3, num_pcg=60, max_pairs=4096, linear="pcg")
+    solve_sparse_sharded(poses0, valid, local, mesh, params)        # first-call set-up
+    barrier(mesh)
+    _sync()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    out, cost = solve_sparse_sharded(poses0, valid, local, mesh, params)
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    st = dict(mesh.stats)
+    chunk, dropped = make_replicated_chunk_solver(mesh, n, store.capacity, params)(
+        poses0, valid, store)
+    res = {"frames": n, "corrs": int(arrays["count"]), "ms": ms, "final_cost": float(cost),
+           "initial_cost": float(gn_pcg.cost(poses0, store)), "pairs_dropped": int(dropped),
+           "chunk_solver_max_abs_diff": float((chunk - out).abs().max()),
+           "max_abs_pose_err_vs_gt": float((out - torch.as_tensor(gt, device=dev)).abs().max()),
+           "collectives": st["calls"],
+           "host_staged_bytes": st["host_staged_bytes"]}
+    p_local = min(params.max_pairs, store.capacity // mesh.size)
+    res["all_gather_bytes_per_gn_step_sent"] = p_local * 156 * 4
+    res["all_gather_bytes_per_gn_step_received"] = p_local * 156 * 4 * mesh.size
+    res["all_gather_bytes_per_solve_sent"] = st["all_gather_bytes"]
+    if mesh.is_root:
+        ref, _ = gn_pcg.solve_sparse(poses0, valid, store, params)
+        res["max_abs_pose_diff_vs_single_pcg"] = float((out - ref).abs().max())
+    return res
+
+
+def _mesh_map(mesh, dev, seq, noisy, gt, app, bundling):
+    """(b) ``make_sharded_apply`` at the default table against the
+    single-table op (kernels) after a gather, at 11 ops and at 1 op."""
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.parallel.map_sharded import (
+        gather_payload,
+        make_sharded_apply,
+        shard_table_payload,
+    )
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops
+    from bundlefusion_tpu_torch.tsdf.integrate import candidate_keys
+    from bundlefusion_tpu_torch.tsdf.table import allocate_packed
+
+    eng = BundleFusion(seq["intrinsics"], app, bundling, max_keyframes=2, device=dev)
+    intr, params = eng.intr_int, eng.tsdf_params
+    depths, colors = [], []
+    for i in range(6):
+        _, _, d, c = eng._archive_frame(seq["depth"][i], seq["color"][i], i)
+        depths.append(d)
+        colors.append(c)
+        for T in (noisy[i], gt[i]):
+            allocate_packed(eng.table, candidate_keys(d, intr, torch.as_tensor(T, device=dev),
+                                                      params))
+    D, C = torch.stack(depths), torch.stack(colors)
+    P_noisy = torch.as_tensor(noisy[:6], device=dev)
+    P_gt = torch.as_tensor(gt[:6], device=dev)
+    base = eng.table
+    apply_tsdf_ops(base, D[:5], C[:5], P_noisy[:5], [1.0] * 5, list(range(5)), intr, params)
+    batches = {
+        "1op": (D[5:6].contiguous(), C[5:6].contiguous(), P_noisy[5:6], [1.0], [0]),
+        "11op": (D, C, torch.cat([torch.stack([P_noisy[:5], P_gt[:5]], 1).reshape(10, 4, 4),
+                                  P_noisy[5:6]]),
+                 [-1.0, 1.0, -1.0, 1.0, 0.0, 0.0, -1.0, 1.0, -1.0, 1.0, 1.0],
+                 [0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5]),
+    }
+    apply = make_sharded_apply(mesh, base.num_blocks, intr, params)
+    out = {"rows_per_rank": base.num_blocks // mesh.size}
+    launches = dict.fromkeys(kernels.SOURCES, 0)
+    for name, batch in batches.items():
+        ref = base.clone()
+        apply_tsdf_ops(ref, *batch, intr, params)
+        shard = shard_table_payload(base, mesh)
+        apply(shard, *batch)                                       # first call
+        shard = shard_table_payload(base, mesh)
+        before = dict(kernels.launch_counts)
+        _sync()
+        t0 = time.perf_counter()
+        apply(shard, *batch)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k in launches:
+            launches[k] += kernels.launch_counts[k] - before[k]
+        full = gather_payload(shard, mesh)
+        err = -1.0
+        if mesh.is_root:
+            got = dataclasses.replace(ref, sdf=full["sdf"], weight=full["weight"],
+                                      color=full["color"])
+            err = _compare(got, ref)
+        out[name] = {"ms": ms, "max_abs_err": err}
+        del ref, shard, full
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    del eng, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_engine(mesh, dev, seq, gt, app, cfg):
+    """(c) the engine with ``mesh=`` through its public entry points."""
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.utils.metrics import evaluate_ate_rmse
+
+    bundling, n_frames = cfg["bundling"], cfg["n_frames"]
+    sub_len = bundling.submap_size
+    eng = BundleFusion(seq["intrinsics"], app, bundling, sift_cfg=cfg["sift_cfg"],
+                       max_keyframes=cfg["max_keyframes"], mesh=mesh)
+    warm_s = eng.warmup()
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.reset_stats()
+    frame_ms, boundary, agree = [], [], []
+    handle = eng.upload_frame(seq["depth"][0], seq["color"][0])
+    for f in range(n_frames):
+        is_boundary = f > 0 and f % sub_len == 0
+        # a wait around every stage of a boundary frame only: its split
+        eng.timing.sync = _sync if is_boundary else None
+        b0 = dict(mesh.stats)
+        _sync()
+        t0 = time.perf_counter()
+        nxt = (eng.upload_frame(seq["depth"][f + 1], seq["color"][f + 1])
+               if f + 1 < n_frames else None)
+        eng.process_frame(handle)
+        _sync()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        handle = nxt
+        if is_boundary:
+            boundary.append({"frame": f, "broadcast_bytes": mesh.stats["broadcast_bytes"]
+                             - b0["broadcast_bytes"],
+                             "all_gather_bytes": mesh.stats["all_gather_bytes"]
+                             - b0["all_gather_bytes"],
+                             "collectives": mesh.stats["calls"] - b0["calls"]})
+            agree.append(eng.replicas_agree())
+    eng.timing.sync = _sync
+    t0 = time.perf_counter()
+    eng.finish()
+    _sync()
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    agree.append(eng.replicas_agree())
+    samples = eng.timing._samples
+
+    def per_boundary(name):
+        return [v * 1e3 for v in samples.get(name, [])]
+
+    local = [a + b + c for a, b, c in zip(per_boundary("time_submap_local_solve"),
+                                          per_boundary("time_submap_verify"),
+                                          per_boundary("time_submap_fuse"))]
+    out = {
+        "rank": mesh.rank,
+        "replicas_agree": agree,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "warmup_s": warm_s,
+        "boundary_broadcast_ms": per_boundary("time_submap_broadcast"),
+        "boundary_match_chunk_ms": per_boundary("time_submap_global_match"),
+        "boundary_sharded_solve_ms": per_boundary("time_submap_global_solve"),
+        "boundary_prune_ms": per_boundary("time_submap_prune"),
+        "boundary_collectives": boundary,
+        "launches": dict(kernels.launch_counts),
+    }
+    if mesh.is_root:
+        traj = eng.trajectory()
+        ate, n_ate = evaluate_ate_rmse(traj, gt[:n_frames])
+        plain = [f for f in range(1, n_frames) if f % sub_len]
+        out.update({
+            "frames": n_frames, "valid_frames": int(sum(eng.frame_valid)),
+            "ate_rmse_m": ate, "ate_frames": n_ate, "submaps": eng.num_keyframes,
+            "keyframes_valid": int(eng.keyframe_valid[:eng.num_keyframes].sum()),
+            "pairs_dropped_total": eng.pairs_dropped_total,
+            "boundary_local_phase_ms": local,
+            "frames_per_s": n_frames / (sum(frame_ms) / 1e3),
+            "frame_ms_median": statistics.median(frame_ms[f] for f in plain),
+            "frame_ms_boundary": [frame_ms[f] for f in range(sub_len, n_frames, sub_len)],
+            "finish_ms": finish_ms,
+        })
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(mesh, seq, noisy, gt, app, cfg):
+    """What each rank of phase_mesh runs: (a), (b), (c) in turn."""
+    dev = mesh.device
+    marks = [time.perf_counter()]
+    res = {"solver": _mesh_solver(mesh, dev, cfg["solver_frames"])}
+    marks.append(time.perf_counter())
+    res["map"] = _mesh_map(mesh, dev, seq, noisy, gt, app, cfg["bundling"])
+    marks.append(time.perf_counter())
+    res["engine"] = _mesh_engine(mesh, dev, seq, gt, app, cfg)
+    marks.append(time.perf_counter())
+    res["parts_s"] = [b - a for a, b in zip(marks, marks[1:])]
+    return res
+
+
+def phase_mesh(seq, noisy, gt, app, ate_single, bundling=None, sift_cfg=None,
+               max_keyframes=None, n_frames=N_FRAMES, solver_frames=1200, ranks=MESH_RANKS,
+               device="cuda:0"):
+    """The multi-device path on ``ranks`` gloo ranks on one card, spawned
+    once (the kernels are built before); see the module docstring.
+    ``bundling`` / ``sift_cfg`` / ``max_keyframes`` default to the engine's.
+    Returns the ``{"mesh"}`` line's dict; raises on a failed check."""
+    from bundlefusion_tpu_torch.config import BundlingConfig
+    from bundlefusion_tpu_torch.parallel.mesh import run_ranks
+
+    bundling = bundling or BundlingConfig()
+    cfg = {"bundling": bundling, "sift_cfg": sift_cfg, "max_keyframes": max_keyframes,
+           "n_frames": n_frames, "solver_frames": solver_frames}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wire = {k: seq[k] for k in ("depth", "color", "intrinsics")}
+    res = run_ranks(_mesh_rank, ranks, wire, noisy, gt, app, cfg, backend="gloo",
+                    device=device, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = res[0]
+    sol, mp, en = r0["solver"], r0["map"], r0["engine"]
+    if not (sol["pairs_dropped"] == 0 and sol["final_cost"] < 1e-3 * sol["initial_cost"]
+            and sol["max_abs_pose_diff_vs_single_pcg"] <= MESH_POSE_ATOL
+            and sol["chunk_solver_max_abs_diff"] <= 1e-6):
+        raise AssertionError(f"phase_mesh (a): sharded solve {sol}")
+    if not all(r["solver"]["final_cost"] == sol["final_cost"] for r in res):
+        raise AssertionError("phase_mesh (a): the ranks' costs differ")
+    for r in res:
+        if not all(n > 0 for n in r["map"]["launches"].values()):
+            raise AssertionError(f"phase_mesh (b): rank {r['engine']['rank']} launched "
+                                 f"{r['map']['launches']}")
+        if not all(r["engine"]["replicas_agree"]):
+            raise AssertionError(f"phase_mesh (c): replicas differ {r['engine']['replicas_agree']}")
+    if not (en["valid_frames"] == n_frames and en["ate_frames"] == n_frames
+            and en["ate_rmse_m"] < ATE_MAX_M):
+        raise AssertionError(f"phase_mesh (c): {en['valid_frames']} valid, ATE {en['ate_rmse_m']}")
+    want = -(-(n_frames - 1) // bundling.submap_size)
+    if en["submaps"] != want or en["keyframes_valid"] < want - 1:
+        raise AssertionError(f"phase_mesh (c): {en['submaps']} submaps, "
+                             f"{en['keyframes_valid']} keyframes valid")
+    if not all(n > 0 for n in en["launches"].values()):
+        raise AssertionError(f"phase_mesh (c): rank 0 launched {en['launches']}")
+    return {
+        "ranks": ranks, "backend": "gloo", "device": device, "spawn_s": spawn_s,
+        "parts_s": [r["parts_s"] for r in res],
+        "solver": {**sol, "ms_per_rank": [r["solver"]["ms"] for r in res]},
+        "map": {**mp, "launches_per_rank": [r["map"]["launches"] for r in res]},
+        "engine": {**en, "ate_rmse_m_single_device": ate_single,
+                   "peak_mem_gb_per_rank": [r["engine"]["peak_mem_gb"] for r in res],
+                   "replicas_agree_per_rank": [r["engine"]["replicas_agree"] for r in res]},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
@@ -1573,6 +1862,9 @@ def main() -> int:
     t0 = time.perf_counter()
     en["solver_at_width"] = phase_solver_width(dev)
     en["solver_at_width"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = phase_mesh(seq, noisy, gt, app, en["ate_rmse_m"])
+    mesh["phase_s"] = time.perf_counter() - t0
     main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
     main_errs += [c["max_abs_err"] for c in en["main_path_checks"].values()]
 
@@ -1588,6 +1880,7 @@ def main() -> int:
             "launches_frontend": fe["launches"][name],
             "launches_engine": en["launches"][name],
             "launches_recorded": rec["launches"][name],
+            "launches_mesh": mesh["engine"]["launches"][name],
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -1615,6 +1908,7 @@ def main() -> int:
     print(json.dumps({"frontend": fe}))
     print(json.dumps({"engine": en}))
     print(json.dumps({"recorded": rec}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,10 @@ sums in another order, and another LU), one ``_submap_step`` from the same
 state (flags equal, poses within 2e-3) and a 13-frame ``process_frame`` +
 ``finish`` run (flags equal, trajectory within 5e-3, as the CPU test holds
 the port to the JAX engine), and run the engine twice on the card: the same
-flags, and the same trajectory bit for bit.
+flags, and the same trajectory bit for bit. The multi-device path runs on 2
+``gloo`` ranks on the card: ``make_sharded_apply`` (the kernels over each
+rank's rows) against the plain sweep, and the sharded solver against the
+single-device PCG solve on the CPU.
 
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
@@ -446,3 +449,70 @@ def test_raycast_on_card_matches_cpu(setup, shift):
         assert (fa != fb).mean() <= 1e-2 and fa.mean() > 0.5, key
         ok = fa & fb
         np.testing.assert_allclose(a[ok], b[ok], rtol=0, atol=1e-5, err_msg=key)
+
+
+# ---- the multi-device path: 2 gloo ranks on one card. The ranks' code is
+# ``tests/torch_mesh_workers.py``, imported by its own name: pytest puts
+# ``tests/`` on the path of this file (and of the ranks it starts) ----
+
+def _rdzv(tmp_path):
+    return "file://" + str(tmp_path / "rdzv_store")
+
+
+def test_sharded_apply_on_card_matches_plain(setup, tmp_path):
+    """``make_sharded_apply`` on 2 ``gloo`` ranks on the card: each rank
+    runs the three CUDA kernels over its half of the rows; the gathered
+    payload equals the plain full sweep (weights exact, sdf / colour within
+    1e-6) and a de-integrate returns every weight to 0."""
+    from bundlefusion_tpu_torch.parallel.mesh import run_ranks
+    from torch_mesh_workers import map_scenarios
+
+    base, D, C, P, intr = setup
+    kernels.build_all()  # before the ranks start: no two builds race
+    t = ttab.create_table(4096, 2048, "cpu")
+    Dh, Ch, Ph = D.cpu(), C.cpu(), P.cpu()
+    for i in range(2):
+        tint.allocate_for_frame(t, Dh[i], intr, Ph[i], PARAMS)
+    arrays = {k: v.numpy() for k, v in t.__dict__.items()}
+    ranks = run_ranks(map_scenarios, 2, arrays, Dh[:2].numpy(), Ch[:2].numpy(),
+                      Ph[:2].numpy(), dict(intr.__dict__), dict(PARAMS.__dict__),
+                      device="cuda:0", init_method=_rdzv(tmp_path))
+    ref = t.clone()
+    apply_ops.apply_tsdf_ops_ref(ref, Dh[:2], Ch[:2], Ph[:2], [1.0, 1.0], [0, 1], intr, PARAMS)
+    for r in ranks:
+        assert all(r["launches"][k] >= 3 for k in kernels.SOURCES), r["launches"]
+        out = r["integrated"]
+        np.testing.assert_array_equal(out["weight"], ref.weight.numpy())
+        np.testing.assert_allclose(out["sdf"], ref.sdf.numpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(out["color"], ref.color.numpy(), rtol=0, atol=ATOL)
+        assert r["once"]["weight"].sum() > 0
+        np.testing.assert_array_equal(r["round_trip"]["weight"], t.weight.numpy())
+
+
+def test_two_rank_solve_on_card(setup, tmp_path):
+    """``solve_sparse_sharded`` and the chunk solver on 2 ``gloo`` ranks on
+    the card against the single-device PCG solve on the CPU (poses within
+    2e-3, cost under 1e-5, no pair dropped); the collectives cross through
+    host copies, which the mesh counts."""
+    from bundlefusion_tpu_torch.io.synthetic import ring_pose_graph
+    from bundlefusion_tpu_torch.parallel.mesh import run_ranks
+    from bundlefusion_tpu_torch.solver import gn_pcg
+    from bundlefusion_tpu_torch.solver.residuals import corr_store_from_numpy
+    from torch_mesh_workers import solver_scenarios
+
+    gt, arrays = ring_pose_graph(24, 16, 3)
+    rng = np.random.default_rng(0)
+    init = gt + rng.normal(size=gt.shape).astype(np.float32) * 0.01
+    init[0] = gt[0]
+    params = dict(num_gn=3, num_pcg=60, linear="pcg")
+    ranks = run_ranks(solver_scenarios, 2, init, arrays, params, device="cuda:0",
+                      init_method=_rdzv(tmp_path))
+    ref, _ = gn_pcg.solve_sparse(torch.from_numpy(init), torch.ones(len(init), dtype=torch.bool),
+                                 corr_store_from_numpy(arrays, "cpu"),
+                                 gn_pcg.SolverParams(**params))
+    for r in ranks:
+        assert r["cost"] < 1e-5 and r["dropped"] == 0
+        np.testing.assert_allclose(r["poses"], ref.numpy(), atol=2e-3)
+        np.testing.assert_array_equal(r["chunk_poses"], r["poses"])
+        assert r["stats"]["host_staged_bytes"] > 0
+    np.testing.assert_array_equal(ranks[0]["poses"], ranks[1]["poses"])

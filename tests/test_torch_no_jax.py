@@ -32,11 +32,12 @@ MODULES = [
     "io.binary_dump", "io.checkpoint", "io.native", "io.ply", "io.sens", "io.sensors",
     "io.synthetic", "io.tum",
     "ops.filters", "ops.image", "ops.matching", "ops.resample", "ops.sift",
+    "parallel.ba_sharded", "parallel.map_sharded", "parallel.mesh",
     "pipeline.frames", "pipeline.frontend", "pipeline.online", "pipeline.trajectory",
     "solver.dense_term", "solver.gn_pcg", "solver.residuals",
     "tsdf.apply_ops", "tsdf.integrate", "tsdf.marching_cubes", "tsdf.raycast", "tsdf.splat",
     "tsdf.streaming", "tsdf.table",
-    "utils.metrics", "utils.timing", "utils.visualization",
+    "utils.corr_eval", "utils.metrics", "utils.timing", "utils.visualization",
 ]
 
 
