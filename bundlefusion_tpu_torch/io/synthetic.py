@@ -3,11 +3,14 @@
 Port of ``bundlefusion_tpu/io/synthetic.py:25-350``: the room-like scene
 (spheres + boxes + floor) is sphere-traced in torch on the caller's
 device; the camera trajectories and intrinsics are numpy copies. Lets the
-port run and bench with no JAX.
+port run and bench with no JAX. The port adds a walled room around the
+same objects (``room_scene``) and a pan inside it (``pan_trajectory``):
+a scan whose surface fills tens of thousands of TSDF blocks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +27,8 @@ class Scene:
     box_centers: torch.Tensor     # [B, 3]
     box_halfsizes: torch.Tensor   # [B, 3]
     floor_y: float                # y of the floor plane (+y is down)
+    room_center: torch.Tensor | None = None     # [3] walls: the inside of a box
+    room_halfsizes: torch.Tensor | None = None  # [3]
 
 
 def default_scene(device="cpu") -> Scene:
@@ -41,6 +46,17 @@ def default_scene(device="cpu") -> Scene:
     )
 
 
+def room_scene(device="cpu") -> Scene:
+    """The default scene's objects inside walls and a ceiling: a 4.4 x 4.4 m
+    room, 2.45 m from the floor to the ceiling, every wall within the 3 m
+    the TSDF integrates from a camera near the middle."""
+    return dataclasses.replace(
+        default_scene(device),
+        room_center=torch.tensor([0.0, -0.35, 1.2], dtype=torch.float32, device=device),
+        room_halfsizes=torch.tensor([2.2, 1.25, 2.2], dtype=torch.float32, device=device),
+    )
+
+
 def _object_distances(scene: Scene, p):
     d_sph = torch.linalg.norm(p[..., None, :] - scene.sphere_centers, dim=-1) - scene.sphere_radii
     q = torch.abs(p[..., None, :] - scene.box_centers) - scene.box_halfsizes
@@ -48,7 +64,11 @@ def _object_distances(scene: Scene, p):
         torch.amax(q, dim=-1), max=0.0
     )
     d_floor = (scene.floor_y - p[..., 1])[..., None]
-    return torch.cat([d_sph, d_box, d_floor], -1)
+    d = [d_sph, d_box, d_floor]
+    if scene.room_center is not None:
+        inside = scene.room_halfsizes - torch.abs(p - scene.room_center)
+        d.append(torch.amin(inside, dim=-1, keepdim=True))
+    return torch.cat(d, -1)
 
 
 def scene_sdf(scene: Scene, p):
@@ -140,6 +160,26 @@ def orbit_trajectory(n_frames: int, radius: float = 0.4, noise: float = 0.0, see
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = R
         T[:3, 3] = eye
+        poses.append(T)
+    return np.stack(poses)
+
+
+def pan_trajectory(n_frames: int):
+    """A camera near the middle of ``room_scene`` turning once on the spot
+    while the view nods three times between 0.5 rad down and up, so that
+    walls, floor and ceiling all come into view. Starts looking at the
+    objects (+z). Returns [N, 4, 4] cam-to-world float32."""
+    poses = []
+    for i in range(n_frames):
+        s = i / max(n_frames, 1)
+        yaw = 2.0 * np.pi * s
+        p = 0.5 * np.sin(2.0 * np.pi * 3 * s)
+        fwd = np.array([np.sin(yaw) * np.cos(p), np.sin(p), np.cos(yaw) * np.cos(p)])
+        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)  # y-down camera, as _look_at
+        right /= np.linalg.norm(right)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], 1)
+        T[:3, 3] = (0.0, -0.3, 0.8)
         poses.append(T)
     return np.stack(poses)
 

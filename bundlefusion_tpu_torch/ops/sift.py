@@ -223,8 +223,13 @@ def _orientations(gm_flat, go_flat, base, W, H, x, y, sigma_local):
     scale = (1.5 * sigma_local / 4.0 * 2.0)[:, None]          # [K, 1]
     offx = grid_x * scale                                      # [K, 256]
     offy = grid_y * scale
-    sx = x[:, None] + offx
-    sy = y[:, None] + offy
+    # the sample point with one rounding, as the reference's compiler
+    # fuses x + grid * scale into a multiply-add (exact in float64, then
+    # rounded once): outside the image the clamped bilinear read jumps a
+    # whole pixel at an integer, and a grid point that rounds onto one on
+    # one side and an ulp past it on the other turns the key
+    sx = (x.double()[:, None] + grid_x.double() * scale.double()).float()
+    sy = (y.double()[:, None] + grid_y.double() * scale.double()).float()
     m = _bilinear_flat(gm_flat, base[:, None], W[:, None], H[:, None], sx, sy)
     o = _bilinear_flat(go_flat, base[:, None], W[:, None], H[:, None], sx, sy)
     r2 = offx * offx + offy * offy

@@ -92,17 +92,46 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    phase 6's, ``replicas_agree()`` after every boundary, per boundary the
    local phase, broadcast, ``match_chunk`` and sharded-solve ms (a wait
    around every stage of a boundary frame) and the bytes broadcast,
-   frames/s, peak memory per rank.
+   frames/s, peak memory per rank;
+10. capacity: the long-run path of ``bundlefusion_tpu_torch.scripts``, after
+   the mesh phase: (a) ``scripts.drift_demo.main`` at its card configuration
+   (640x480, 241 frames of an out-and-back loop with 0.5 % depth noise and a
+   blackout one submap long, 64 keyframes, 131 072 blocks): its two checks
+   (tracking lost in the blackout, more than 70 % of the frames after it
+   valid again), table invariants clean, no allocation failure, its TSDF op
+   held against its plain version at its first 1-op and 11-op dispatch; (b) ``scripts.profile_boundary.main`` at G = 640 with 25
+   correspondences per pair (4 199 pairs, 104 975 rows): no pair dropped, a
+   largest residual under 1e-3, the cost falling, each part's time; (c) the
+   same problem presorted and solved with a working set of 1<<16 rows and
+   4 096 pairs, below both of its sizes, on the card and on the CPU: the
+   same ``dropped``, the same working set, poses within 1e-4 (the worst pair
+   is reported: on this noise-free problem it is a pair at rounding level);
+   (d) the demo's engine over its first 4 submaps with bogus
+   correspondences between keyframes 1 and 0 appended after the second
+   boundary (the third boundary's prune rounds must remove them), then
+   keyframe 1 invalidated and queued (the fourth boundary must revalidate
+   it): the engine's prune and revalidation branches, which the demo's
+   clean runs never take; (e) the engine's fusion half, as in 3., over 120
+   frames of one turn on the spot inside a walled room (the port's
+   ``room_scene`` / ``pan_trajectory``) at the demo's card configuration,
+   whose surface fills tens of thousands of the 131 072 blocks: the TSDF op
+   held against its plain version, and timed beside it, at the first 1-op
+   and multi-op dispatch once 20 000 rows are live, table invariants clean,
+   no allocation failure, the render within 2 voxels.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
 {...}}`` line (with ``solver_at_width`` inside), a ``{"recorded": {...}}``
-line, a ``{"mesh": {...}}`` line and last ``{"ok": true, "device":
-{...}}``. ``launches`` in the kernels line counts the slice phase,
+line, a ``{"mesh": {...}}`` line, a ``{"capacity": {...}}`` line and last
+``{"ok": true, "device": {...}}``. ``launches`` in the kernels line counts the slice phase,
 ``launches_frontend`` the frontend phase's first run, ``launches_engine`` the
 engine phase's first run, ``launches_recorded`` the whole recorded phase,
-``launches_mesh`` rank 0's mesh engine run (c); the counts are set to 0 just
-before each. In
+``launches_mesh`` rank 0's mesh engine run (c), ``launches_capacity`` the
+drift demo run of the capacity phase, ``launches_large_table`` its run (e);
+the counts are set to 0 just before each. ``large_table`` in the
+``tsdf_apply`` entry has the op's ``ms`` / ``plain_ms`` by CUDA events at
+run (e)'s checked dispatches, its live and changed rows, and the bound from
+the changed rows. In
 the engine line ``host_reads_per_boundary`` counts the device -> host reads
 of each boundary (the pack's included), ``lu_zero_steps`` the direct solves
 that failed and became no update. In
@@ -458,14 +487,23 @@ def phase_kernels(dev, seq, noisy, gt, app):
     return out
 
 
+def _live_rows(table) -> int:
+    return int((table.slot_keys[:-1] != EMPTY_KEY).sum())
+
+
 class _CheckedApply:
     """Wraps the engine's TSDF op: counts dispatches and, at the first
     1-op and the first multi-op dispatch, holds the kernel's result against
-    the plain version run on a snapshot taken before the call."""
+    the plain version run on a snapshot taken before the call. With
+    ``min_rows`` it checks the first of each once the table holds that many
+    live rows, and there also times the op and its plain version (CUDA
+    events) and counts the rows the op changed, for the bound: each changed
+    row read and written once, every op on every changed row."""
 
-    def __init__(self, eng):
+    def __init__(self, eng, min_rows=None):
         self.eng = eng
         self.inner = eng._apply_tsdf_ops
+        self.min_rows = min_rows
         self.dispatches = 0
         self.checked = {}
 
@@ -473,29 +511,48 @@ class _CheckedApply:
         from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops_ref
 
         self.dispatches += 1
+        args = (depths, colors, poses, signs, img_of_op)
         kind = "fast" if poses.shape[0] == 1 else "rows"
-        snap = self.eng.table.clone() if kind not in self.checked else None
-        self.inner(depths, colors, poses, signs, img_of_op)
-        if snap is not None:
-            apply_tsdf_ops_ref(snap, depths, colors, poses, signs, img_of_op,
-                               self.eng.intr_int, self.eng.tsdf_params)
+        if kind in self.checked or (self.min_rows is not None
+                                    and _live_rows(self.eng.table) < self.min_rows):
+            self.inner(*args)
+            return
+        snap = self.eng.table.clone()
+        entry = {"frame": self.eng.frame_idx, "ops": int(poses.shape[0])}
+
+        def plain():
+            apply_tsdf_ops_ref(snap, *args, self.eng.intr_int, self.eng.tsdf_params)
+
+        if self.min_rows is None:
+            self.inner(*args)
+            plain()
             _sync()
-            self.checked[kind] = {"frame": self.eng.frame_idx, "ops": int(poses.shape[0]),
-                                  "max_abs_err": _compare(self.eng.table, snap)}
-            del snap
+        else:
+            before = snap.clone()
+            entry["ms"] = _event_ms(lambda: self.inner(*args))
+            entry["plain_ms"] = _event_ms(plain)
+            changed = int(_changed_rows(self.eng.table, before).sum())
+            del before
+            n_ops = sum(1 for x in signs if x != 0)
+            entry.update(live_rows=_live_rows(self.eng.table), rows_changed=changed,
+                         bound=_bound(changed * 2 * ROW_BYTES,
+                                      changed * n_ops * 512 * FLOP_PER_VOXEL_OP))
+        entry["max_abs_err"] = _compare(self.eng.table, snap)
+        self.checked[kind] = entry
+        del snap
 
 
-def _drive_frame(eng, seq, noisy, gt, i, stage):
+def _drive_frame(eng, seq, noisy, gt, i, stage, push_after=PUSH_AFTER):
     """Frame ``i`` of the fusion half, each stage run through
     ``stage(name, fn)``; the noise-free poses are pushed after the frames
-    of PUSH_AFTER, as submap retirements do."""
+    of ``push_after``, as submap retirements do."""
     eng.frame_idx = i
     slot = eng._store_slot(i)
     stage("archive", lambda: eng._archive_frame(seq["depth"][i], seq["color"][i], slot))
     stage("tsdf", lambda: eng._tsdf_dispatch(slot, noisy[i], True))
     eng._record_frame(i, noisy[i], True)
     stage("render", lambda: eng._render_frame(i, noisy[i]))
-    if i in PUSH_AFTER:
+    if i in push_after:
         eng.complete_traj = [gt[f].copy() for f in range(len(eng.complete_traj))]
         eng._push_optimized_to_manager()
 
@@ -1824,6 +1881,237 @@ def phase_mesh(seq, noisy, gt, app, ate_single, bundling=None, sift_cfg=None,
     }
 
 
+CAPACITY_POSE_ATOL = 1e-4          # phase_capacity (c): card against the CPU
+CAPACITY_OVERFLOW = (4096, 1 << 16)  # (max_pairs, max_working_corrs) below the problem's
+PAN_FRAMES = 120                     # phase_capacity (e): one turn inside the walled room
+PAN_PUSH_AFTER = (30, 60, 90)        # (e): its pushes of the noise-free poses
+PAN_MIN_ROWS = 20000                 # (e): live rows at its checked dispatches
+
+
+def _prune_and_revalidate(dev) -> dict:
+    """Part (d) of :func:`phase_capacity`, as ``tests/test_torch_engine.py``
+    drives them on the CPU: the drift demo's engine on the first 4 submaps
+    of its sequence, with bogus correspondences between keyframes 1 and 0
+    (0.58 m apart) appended after the second boundary, which the third
+    boundary's prune rounds must remove; then keyframe 1 loses its pose and
+    its correspondences and is queued, and the fourth boundary must re-match
+    and restore it."""
+    from bundlefusion_tpu_torch.io.synthetic import loop_trajectory, make_sequence_wire
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.scripts import drift_demo
+    from bundlefusion_tpu_torch.solver.residuals import append_corrs, invalidate_frame
+    from bundlefusion_tpu_torch.tsdf.table import check_invariants
+
+    small = dev.type != "cuda"
+    intr, app, bundling, sift_cfg, G = drift_demo.configs(small)
+    if small:
+        # the CPU rehearsal: at the small configuration's 40x30 dense cache
+        # a correct submap fails verify as often as not (ROADMAP Queue 3)
+        bundling = dataclasses.replace(bundling, downsampled_width=80, downsampled_height=60)
+    sub = bundling.submap_size
+    n = 4 * sub + 1
+    seq = make_sequence_wire(n, intr=intr, poses=loop_trajectory(41 if small else 241)[:n],
+                             noise_depth=drift_demo.NOISE, device=dev)
+    eng = BundleFusion(intr, app, bundling, sift_cfg=sift_cfg, max_keyframes=G, device=dev)
+    eng.warmup()
+    reval = drift_demo.RevalidationLog(eng)
+    for f in range(2 * sub + 1):
+        eng.process_frame(seq["depth"][f], seq["color"][f])
+    K = 8
+    rng = np.random.default_rng(0)
+    p_i = rng.uniform(-0.5, 0.5, (K, 3)).astype(np.float32) + np.float32([0, 0, 1.5])
+    c0 = int(eng.glob.corrs.count)
+    append_corrs(eng.glob.corrs, torch.full((K,), 1, dtype=torch.int32, device=dev),
+                 torch.zeros(K, dtype=torch.int32, device=dev), torch.from_numpy(p_i).to(dev),
+                 torch.from_numpy(p_i + np.float32([0.5, 0.3, 0.0])).to(dev),
+                 torch.ones(K, dtype=torch.bool, device=dev))
+    for f in range(2 * sub + 1, 3 * sub + 1):
+        eng.process_frame(seq["depth"][f], seq["color"][f])
+    injected_live = int((eng.glob.corrs.img_i[c0:c0 + K] >= 0).sum())
+    invalidate_frame(eng.glob.corrs, 1)
+    eng.glob.keys.frame_valid[1] = False
+    eng.keyframe_valid[1] = False
+    eng.kf_valid_dev[1] = False
+    if 1 not in eng.retry_list:
+        eng.retry_list.append(1)
+    for f in range(3 * sub + 1, n):
+        eng.process_frame(seq["depth"][f], seq["color"][f])
+    eng.finish()
+    out = {
+        "frames": n, "prune_rounds_per_boundary": [s["prune_rounds"] for s in eng.boundary_stats],
+        "injected_rows_left": injected_live,
+        "revalidations": {"attempted": reval.attempted, "succeeded": reval.succeeded},
+        "keyframes_valid": int(eng.keyframe_valid[: eng.num_keyframes].sum()),
+        "keyframes": eng.num_keyframes, "retry_list": list(eng.retry_list),
+        "valid_frames": int(np.isfinite(eng.trajectory()).all((1, 2)).sum()),
+        "invariants": {k: int(v) for k, v in check_invariants(eng.table).items()},
+    }
+    if not (out["prune_rounds_per_boundary"][2] >= 1 and injected_live == 0):
+        raise AssertionError(f"phase_capacity (d): the bogus pair was not pruned: {out}")
+    if not (reval.succeeded >= 1 and bool(eng.keyframe_valid[1]) and 1 not in eng.retry_list):
+        raise AssertionError(f"phase_capacity (d): keyframe 1 was not revalidated: {out}")
+    if any(out["invariants"].values()):
+        raise AssertionError(f"phase_capacity (d): invariants {out['invariants']}")
+    return out
+
+
+def _large_table(dev) -> dict:
+    """Part (e) of :func:`phase_capacity`: the TSDF kernels at tens of
+    thousands of live rows. The engine's fusion half, as ``phase_slice``
+    drives it, over one turn on the spot inside the port's walled room
+    (``io/synthetic.py`` ``room_scene``, ``pan_trajectory``: walls, floor
+    and ceiling come into view) at the drift demo's card configuration
+    (640x480 input, 320x240 integration, 131 072 blocks), on the card and
+    in a rehearsal on the CPU alike: each frame archived, fused at its pose
+    with 1 cm of noise and rendered; the noise-free poses pushed after the
+    frames of ``PAN_PUSH_AFTER`` and at the end (every frame so far
+    re-integrated), then the drain. The op is held against its plain
+    version, and timed beside it, at the first 1-op and multi-op dispatch
+    once the table holds ``PAN_MIN_ROWS`` live rows."""
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire, pan_trajectory, room_scene
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.scripts import drift_demo
+
+    intr, app, bundling, _, _ = drift_demo.configs(small=False)
+    gt = pan_trajectory(PAN_FRAMES)
+    noisy = gt.copy()
+    noisy[:, :3, 3] += np.random.default_rng(0).normal(
+        scale=0.01, size=(PAN_FRAMES, 3)).astype(np.float32)
+    seq = make_sequence_wire(PAN_FRAMES, intr=intr, scene=room_scene(dev), poses=gt,
+                             device=dev)
+    eng = BundleFusion(intr, app, bundling, max_keyframes=PAN_FRAMES // 10 + 2, device=dev)
+    checker = _CheckedApply(eng, min_rows=PAN_MIN_ROWS)
+    eng._apply_tsdf_ops = checker
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    t0 = time.perf_counter()
+    for i in range(PAN_FRAMES):
+        _drive_frame(eng, seq, noisy, gt, i, lambda _name, fn: fn(), PAN_PUSH_AFTER)
+    eng.frame_idx = PAN_FRAMES
+    eng.complete_traj = [gt[f].copy() for f in range(PAN_FRAMES)]
+    eng._push_optimized_to_manager()
+    eng._drain_reintegration()
+    _sync()
+    loop_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    med_err, hit = _depth_err(eng._render(eng.table, gt[-1])["depth"], seq, PAN_FRAMES - 1)
+    out = {"frames": PAN_FRAMES, "loop_s": loop_s, "tsdf_dispatches": checker.dispatches,
+           **drift_demo.engine_health(eng), "render_median_abs_err_m": med_err,
+           "render_hit_pixels": hit, "launches": launches, "checks": checker.checked}
+    if set(checker.checked) != {"fast", "rows"}:
+        raise AssertionError(f"phase_capacity (e): no dispatch checked at {PAN_MIN_ROWS} "
+                             f"live rows: {out}")
+    if any(out["invariants"].values()) or out["alloc_failures"]:
+        raise AssertionError(f"phase_capacity (e): invariants or allocation failures: {out}")
+    if set(launches) != set(kernels.SOURCES) or any(
+            n != checker.dispatches for n in launches.values()):
+        raise AssertionError(f"phase_capacity (e): launches != TSDF dispatches: {out}")
+    if not med_err < 2 * eng.tsdf_params.voxel_size:
+        raise AssertionError(f"phase_capacity (e): render median |depth - GT| {med_err} m")
+    return out
+
+
+def phase_capacity(dev, boundary_g=640, per_pair=25, overflow=CAPACITY_OVERFLOW):
+    """The long-run and capacity path; see the module docstring. On the CPU
+    (a rehearsal) ``boundary_g`` / ``per_pair`` / ``overflow`` shrink the
+    sizes (the drift demo takes its CPU size by itself). Returns the ``{"capacity"}`` line's dict; raises on a
+    failed check."""
+    import shutil
+    import tempfile
+
+    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch.scripts import drift_demo, profile_boundary
+
+    tmp = tempfile.mkdtemp(prefix="bf_capacity_")
+    base = ["--out", tmp] + (["--device", dev.type] if dev.type != "cuda" else [])
+    out = {}
+    try:
+        # ---- (a) the drift demo, its TSDF op held against its plain
+        # version at its first 1-op and 11-op dispatch, the kernels' counts
+        # set to 0 after its warm-up ----
+        checkers = []
+
+        def hook(eng):
+            checkers.append(_CheckedApply(eng))
+            eng._apply_tsdf_ops = checkers[-1]
+            for name in kernels.launch_counts:
+                kernels.launch_counts[name] = 0
+
+        t0 = time.perf_counter()
+        demo = drift_demo.main(base, hook=hook)
+        launches = dict(kernels.launch_counts)
+        checker = checkers.pop()
+        torch.cuda.empty_cache()
+        if any(demo["invariants"].values()) or demo["alloc_failures"]:
+            raise AssertionError(f"phase_capacity (a): invariants {demo['invariants']}, "
+                                 f"alloc failures {demo['alloc_failures']}")
+        if set(checker.checked) != {"fast", "rows"}:
+            raise AssertionError(f"phase_capacity (a): dispatches checked {checker.checked}")
+        if any(n == 0 for n in launches.values()) or set(launches) != set(kernels.SOURCES):
+            raise AssertionError(f"phase_capacity (a): a TSDF kernel was never launched: "
+                                 f"{launches}")
+        out["drift_demo"] = {**demo, "phase_s": time.perf_counter() - t0}
+        out["launches"] = launches
+        out["main_path_checks"] = checker.checked
+        del checker
+
+        # ---- (b) one boundary at G = 640, part by part ----
+        t0 = time.perf_counter()
+        pb = profile_boundary.main(base + [str(boundary_g), str(per_pair)])
+        if not (pb["dropped"] == 0 and np.isfinite(pb["max_residual"])
+                and pb["max_residual"] < 1e-3 and pb["cost_final"] < pb["cost_initial"]):
+            raise AssertionError(f"phase_capacity (b): {pb}")
+        out["boundary"] = {**pb, "phase_s": time.perf_counter() - t0}
+
+        # ---- (c) the same problem past both working-set caps, on the card
+        # and on the CPU ----
+        t0 = time.perf_counter()
+        problem = profile_boundary.build_problem(boundary_g, per_pair, np.random.default_rng(0))
+        params = profile_boundary.solver_params(*overflow)
+        card = profile_boundary.boundary_calls(problem, params, dev)
+        host = profile_boundary.boundary_calls(problem, params, torch.device("cpu"))
+        live = card["working_valid"]
+        pairs_kept = len({(int(i), int(j)) for i, j in zip(card["working_img_i"][live],
+                                                            card["working_img_j"][live])})
+        same_set = all(np.array_equal(card[k], host[k])
+                       for k in ("working_img_i", "working_img_j", "working_valid"))
+        pose_err = max(float(np.abs(card[k] - host[k]).max())
+                       for k in ("poses", "poses_after_prune"))
+        out["overflow"] = {
+            "max_pairs": params.max_pairs, "max_working_corrs": params.max_working_corrs,
+            "corrs": problem["corrs"], "pairs": problem["pairs"],
+            "working_rows": int(live.sum()), "pairs_in_working_set": pairs_kept,
+            "dropped": card["dropped"], "dropped_cpu": host["dropped"],
+            "working_set_equal": same_set, "worst_pair": card["worst_pair"],
+            "worst_pair_cpu": host["worst_pair"], "max_abs_pose_diff_vs_cpu": pose_err,
+            "times_ms": card["times"], "phase_s": time.perf_counter() - t0,
+        }
+        if not (problem["corrs"] > params.max_working_corrs and pairs_kept > params.max_pairs):
+            raise AssertionError(f"phase_capacity (c): not both overflow regimes: "
+                                 f"{out['overflow']}")
+        if not (card["dropped"] == host["dropped"] > 0 and same_set
+                and pose_err <= CAPACITY_POSE_ATOL):
+            raise AssertionError(f"phase_capacity (c): card and CPU differ: {out['overflow']}")
+
+        # ---- (d) the engine's prune round and a won revalidation ----
+        t0 = time.perf_counter()
+        out["prune_and_revalidate"] = _prune_and_revalidate(dev)
+        out["prune_and_revalidate"]["phase_s"] = time.perf_counter() - t0
+
+        # ---- (e) the TSDF kernels at tens of thousands of live rows ----
+        t0 = time.perf_counter()
+        out["large_table"] = _large_table(dev)
+        out["large_table"]["phase_s"] = time.perf_counter() - t0
+    except Exception:
+        print(f"chip_smoke: phase_capacity so far: {json.dumps(out, default=str)[:20000]}",
+              file=sys.stderr)
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
@@ -1865,8 +2153,13 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = phase_mesh(seq, noisy, gt, app, en["ate_rmse_m"])
     mesh["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cap = phase_capacity(dev)
+    cap["phase_s"] = time.perf_counter() - t0
     main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
     main_errs += [c["max_abs_err"] for c in en["main_path_checks"].values()]
+    main_errs += [c["max_abs_err"] for c in cap["main_path_checks"].values()]
+    main_errs += [c["max_abs_err"] for c in cap["large_table"]["checks"].values()]
 
     def entry(name, sub, extra_err=()):
         k11 = kern["11op"][sub] if sub else kern["11op"]
@@ -1881,6 +2174,8 @@ def main() -> int:
             "launches_engine": en["launches"][name],
             "launches_recorded": rec["launches"][name],
             "launches_mesh": mesh["engine"]["launches"][name],
+            "launches_capacity": cap["launches"][name],
+            "launches_large_table": cap["large_table"]["launches"][name],
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -1893,11 +2188,16 @@ def main() -> int:
         e["bound_ms_1op"], e["bound_by_1op"] = k1["bound"]
         return e
 
+    big = cap["large_table"]["checks"]
     kernels_line = {"kernels": [
         entry("tsdf_prepare", "prepare"),
         entry("tsdf_cull", "cull"),
         {**entry("tsdf_apply", None, main_errs), "live_rows": kern["11op"]["live_rows"],
-         "wave_ctas": kern["wave_ctas"]},
+         "wave_ctas": kern["wave_ctas"],
+         # the op (all three kernels) at the large table's checked dispatches
+         "large_table": {k: {key: c[key] for key in ("ops", "live_rows", "rows_changed", "ms",
+                                                     "plain_ms", "bound", "max_abs_err")}
+                         for k, c in big.items()}},
     ]}
     sl["profile"] = prof
     sl["build_s"] = build_s
@@ -1909,6 +2209,7 @@ def main() -> int:
     print(json.dumps({"engine": en}))
     print(json.dumps({"recorded": rec}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"capacity": cap}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

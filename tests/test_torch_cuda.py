@@ -17,7 +17,9 @@ the port to the JAX engine), and run the engine twice on the card: the same
 flags, and the same trajectory bit for bit. The multi-device path runs on 2
 ``gloo`` ranks on the card: ``make_sharded_apply`` (the kernels over each
 rank's rows) against the plain sweep, and the sharded solver against the
-single-device PCG solve on the CPU.
+single-device PCG solve on the CPU. The boundary of
+``scripts.profile_boundary`` at G = 32 runs on the card against the CPU,
+exact and past both working-set caps.
 
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
@@ -516,3 +518,24 @@ def test_two_rank_solve_on_card(setup, tmp_path):
         np.testing.assert_array_equal(r["chunk_poses"], r["poses"])
         assert r["stats"]["host_staged_bytes"] > 0
     np.testing.assert_array_equal(ranks[0]["poses"], ranks[1]["poses"])
+
+
+@pytest.mark.parametrize("caps", [(1 << 18, 1 << 22), (100, 512)], ids=["exact", "overflow"])
+def test_boundary_calls_on_card_match_cpu(setup, caps):
+    """``scripts.profile_boundary``'s boundary (presort, solve, largest
+    residual, a prune round) at G = 32 on the card against the CPU, exact and
+    past both working-set caps: the same ``dropped`` and working set, poses
+    within 1e-4."""
+    from bundlefusion_tpu_torch.scripts import profile_boundary
+
+    problem = profile_boundary.build_problem(32, 8, np.random.default_rng(0))
+    params = profile_boundary.solver_params(*caps)
+    card = profile_boundary.boundary_calls(problem, params, torch.device("cuda"))
+    host = profile_boundary.boundary_calls(problem, params, torch.device("cpu"))
+    assert card["dropped"] == host["dropped"]
+    assert (card["dropped"] > 0) == (caps[0] == 100)
+    for k in ("working_img_i", "working_img_j", "working_valid"):
+        np.testing.assert_array_equal(card[k], host[k])
+    for k in ("poses", "poses_after_prune"):
+        np.testing.assert_allclose(card[k], host[k], rtol=0, atol=1e-4)
+    assert all(v is not None and v > 0 for v in card["times"].values())

@@ -34,6 +34,10 @@ MODULES = [
     "ops.filters", "ops.image", "ops.matching", "ops.resample", "ops.sift",
     "parallel.ba_sharded", "parallel.map_sharded", "parallel.mesh",
     "pipeline.frames", "pipeline.frontend", "pipeline.online", "pipeline.trajectory",
+    "scripts", "scripts.ablate", "scripts.common", "scripts.drift_capacity",
+    "scripts.drift_demo", "scripts.fidelity_report", "scripts.make_fixture",
+    "scripts.profile_boundary", "scripts.scale_run", "scripts.scaling_harness",
+    "scripts.seq_cache", "scripts.verify_drive",
     "solver.dense_term", "solver.gn_pcg", "solver.residuals",
     "tsdf.apply_ops", "tsdf.integrate", "tsdf.marching_cubes", "tsdf.raycast", "tsdf.splat",
     "tsdf.streaming", "tsdf.table",

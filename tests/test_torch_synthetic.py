@@ -74,3 +74,39 @@ def test_make_sequence_wire_matches():
     # float depth within 1e-4 m can round to the neighbouring mm code
     assert np.abs(jd - td)[both].max() <= 1
     assert np.abs(j["color"].astype(int) - t["color"].astype(int))[both].max() <= 1
+
+
+def test_room_scene_keeps_the_objects_and_closes_the_walls():
+    """The port's walled room (no JAX counterpart): inside the room the
+    default scene's objects render as before; every ray from a pan pose
+    ends on a surface, the farthest a corner within the sensor's 4 m; a
+    point near a wall is as far from the scene as from that wall."""
+    room, plain = tsyn.room_scene("cpu"), tsyn.default_scene("cpu")
+    intr = CameraIntrinsics(**jsyn.default_intrinsics(80, 60).__dict__)
+    d_room, _ = tsyn.render_frame(room, intr, torch.from_numpy(tsyn.pan_trajectory(4)[0]))
+    d_plain, _ = tsyn.render_frame(plain, intr, torch.from_numpy(tsyn.pan_trajectory(4)[0]))
+    objects = torch.isfinite(d_plain) & (d_plain < 2.5)
+    assert objects.float().mean() > 0.3
+    torch.testing.assert_close(d_room[objects], d_plain[objects], rtol=0, atol=DEPTH_ATOL)
+    for pose in tsyn.pan_trajectory(8):
+        d, _ = tsyn.render_frame(room, intr, torch.from_numpy(pose))
+        # a ray grazing a silhouette may not converge in 64 steps
+        assert torch.isfinite(d).float().mean() > 0.99
+        assert float(d[torch.isfinite(d)].max()) < 4.0
+    p = torch.tensor([[2.1, -0.3, 0.0], [0.0, -1.5, 0.0]])
+    torch.testing.assert_close(tsyn.scene_sdf(room, p), torch.tensor([0.1, 0.1]),
+                               rtol=0, atol=1e-6)
+
+
+def test_pan_trajectory_turns_on_the_spot():
+    poses = tsyn.pan_trajectory(120)
+    R = poses[:, :3, :3].astype(np.float64)
+    np.testing.assert_allclose(R @ R.transpose(0, 2, 1), np.broadcast_to(np.eye(3), R.shape),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-6)
+    np.testing.assert_array_equal(poses[:, :3, 3], np.broadcast_to(poses[0, :3, 3], (120, 3)))
+    np.testing.assert_allclose(R[0], np.diag([-1.0, -1.0, 1.0]), atol=1e-7)
+    fwd = R[:, :, 2]
+    yaw = np.unwrap(np.arctan2(fwd[:, 0], fwd[:, 2]))
+    assert yaw[-1] - yaw[0] > 2 * np.pi * 0.98 and (np.diff(yaw) > 0).all()
+    assert fwd[:, 1].min() < -0.45 and fwd[:, 1].max() > 0.45   # up and down (y down)
