@@ -11,9 +11,10 @@ differences read as the stages' share of a frame:
   boundary;
 - ``frontend_only``: all three off.
 
-On the card: 640x480, 72 frames (12 untimed), 131 072 blocks, 16 384
-global correspondences, 64 keyframes, the synthetic orbit. With ``--device
-cpu``: the small configuration, 13 frames (5 untimed). Writes
+The operating point is the bench's (``bench.configure``): on the card
+640x480, 72 frames (12 untimed), 131 072 blocks, 16 384 global
+correspondences, 64 keyframes, the synthetic orbit. With ``--device cpu``:
+the small configuration, 13 frames (5 untimed). Writes
 ``<out>/ablate.json``: per configuration frames/s, ms per frame and
 re-integration counts, ``attribution_ms`` (full minus each ablation; the
 frontend floor) and ``_meta`` (platform, the full run, the boundaries each
@@ -28,7 +29,8 @@ from __future__ import annotations
 import dataclasses
 import json
 
-from bundlefusion_tpu_torch.scripts import common, seq_cache
+from bundlefusion_tpu_torch import bench
+from bundlefusion_tpu_torch.scripts import common
 
 CONFIGS = ("full", "no_render", "no_tsdf", "no_solve", "frontend_only")
 
@@ -60,23 +62,11 @@ def main(argv=None) -> dict:
     if set(a.configs) - set(CONFIGS):
         p.error(f"unknown configurations {sorted(set(a.configs) - set(CONFIGS))}")
     dev = common.resolve_device(a.device)
-    from bundlefusion_tpu_torch.config import AppConfig, BundlingConfig
-    from bundlefusion_tpu_torch.io.synthetic import default_intrinsics, make_sequence
     from bundlefusion_tpu_torch.pipeline.online import BundleFusion
 
-    if dev.type == "cuda":
-        n_frames, warm, G = 72, 12, 64
-        intr = default_intrinsics(640, 480)
-        app = AppConfig(hash_num_sdf_blocks=131072, hash_key_capacity=131072,
-                        visible_blocks_cap=8192)
-        bundling = BundlingConfig(max_global_corr=16384)
-        sift_cfg = common.card_sift(app, bundling)
-        seq = seq_cache.cached(n_frames, intr.width, intr.height, device=dev,
-                               cache_dir=a.cache)
-    else:
-        n_frames, warm, G = 13, 5, 8
-        intr, app, bundling, sift_cfg = common.small_config()
-        seq = make_sequence(n_frames, intr=intr)
+    intr, app, bundling, sift_cfg, G, windows = bench.configure(dev)
+    n_frames, warm = windows.n_frames, windows.warmup_frames
+    seq = bench.sequence(dev, intr, n_frames, cache_dir=a.cache)
 
     def make_engine():
         return BundleFusion(intr, app, bundling, sift_cfg=sift_cfg, max_keyframes=G, device=dev)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import time
 
 import numpy as np
@@ -37,6 +38,16 @@ def resolve_device(name) -> torch.device:
 def platform(dev: torch.device) -> str:
     """What a result says it ran on: the card's name, or ``cpu``."""
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+
+
+def gpu_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 def sync(dev: torch.device) -> None:

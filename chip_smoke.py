@@ -117,17 +117,29 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    whose surface fills tens of thousands of the 131 072 blocks: the TSDF op
    held against its plain version, and timed beside it, at the first 1-op
    and multi-op dispatch once 20 000 rows are live, table invariants clean,
-   no allocation failure, the render within 2 voxels.
+   no allocation failure, the render within 2 voxels;
+11. bench: the port's bench command, ``python -m
+   bundlefusion_tpu_torch.bench``, in a child process that loads its kernels
+   itself (``kernels.build_all`` finds the libraries phase 1 built) and runs
+   on its own at ``bench.py``'s operating point (640x480,
+   131 072 blocks, 16 384 global correspondences, 64 keyframes, 108 frames:
+   every frame uploaded before ``warmup``, 12 warm-up and 60 timed frames,
+   16 replayed with a wait around every stage, 20 streamed, then
+   ``finish(extra_solves=2)``). It fails unless the command exits 0 on the
+   card with 108 of 108 frames valid, no pair dropped, the ATE under 0.10 m
+   and all three kernels launched.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
 {...}}`` line (with ``solver_at_width`` inside), a ``{"recorded": {...}}``
-line, a ``{"mesh": {...}}`` line, a ``{"capacity": {...}}`` line and last
-``{"ok": true, "device": {...}}``. ``launches`` in the kernels line counts the slice phase,
+line, a ``{"mesh": {...}}`` line, a ``{"capacity": {...}}`` line, a
+``{"bench": {...}}`` line (the bench's own line) and last ``{"ok": true,
+"device": {...}}``. ``launches`` in the kernels line counts the slice phase,
 ``launches_frontend`` the frontend phase's first run, ``launches_engine`` the
 engine phase's first run, ``launches_recorded`` the whole recorded phase,
 ``launches_mesh`` rank 0's mesh engine run (c), ``launches_capacity`` the
-drift demo run of the capacity phase, ``launches_large_table`` its run (e);
+drift demo run of the capacity phase, ``launches_large_table`` its run (e),
+``launches_bench`` the bench's whole run (its own process, counted from 0);
 the counts are set to 0 just before each. ``large_table`` in the
 ``tsdf_apply`` entry has the op's ``ms`` / ``plain_ms`` by CUDA events at
 run (e)'s checked dispatches, its live and changed rows, and the bound from
@@ -189,14 +201,6 @@ REPLACES = {
     "tsdf_cull": "bundlefusion_tpu/tsdf/apply_pallas.py:554",
     "tsdf_apply": "bundlefusion_tpu/tsdf/apply_pallas.py:104",
 }
-
-
-def _gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _sync():
@@ -2112,6 +2116,58 @@ def phase_capacity(dev, boundary_g=640, per_pair=25, overflow=CAPACITY_OVERFLOW)
     return out
 
 
+BENCH_TIMEOUT_S = 400   # the bench command's time limit (its child is killed then)
+
+
+def phase_bench() -> dict:
+    """The port's bench command, ``python -m bundlefusion_tpu_torch.bench``,
+    in a child process: it loads its kernels and runs on its own, at its
+    card configuration (``bench.py``'s operating point). Its sequence is
+    cached in a temporary directory. Returns its last line's dict; raises
+    unless the command exits 0 on the card with every frame of its windows
+    (108) valid, no pair dropped, the ATE under ``ATE_MAX_M`` and every
+    kernel launched."""
+    import os
+    import shutil
+    import tempfile
+
+    from bundlefusion_tpu_torch import bench, kernels
+
+    n_frames = bench.configure(torch.device("cuda"))[-1].total
+
+    torch.cuda.empty_cache()   # leave the child the memory the earlier phases cached
+    tmp = tempfile.mkdtemp(prefix="bf_bench_")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "bundlefusion_tpu_torch.bench", "--cache", tmp],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S,
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase_bench: the bench exited {proc.returncode}:\n"
+                           f"{proc.stderr[-8000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    line["phase_s"] = time.perf_counter() - t0
+    launches = line["kernel_launches"]
+    bad = []
+    if line["platform"] != "gpu":
+        bad.append(f"platform {line['platform']!r}")
+    if not line["valid_frames"] == line["total_frames"] == n_frames:
+        bad.append(f"{line['valid_frames']} of {line['total_frames']} frames valid")
+    if line["pairs_dropped"] != 0:
+        bad.append(f"{line['pairs_dropped']} pairs dropped")
+    if not line["ate_rmse_cm"] / 100.0 < ATE_MAX_M:
+        bad.append(f"ATE {line['ate_rmse_cm']} cm")
+    if set(launches) != set(kernels.SOURCES) or any(n <= 0 for n in launches.values()):
+        bad.append(f"kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"phase_bench: {'; '.join(bad)}: {json.dumps(line)}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the card",
@@ -2124,9 +2180,10 @@ def main() -> int:
         make_sequence_wire,
         orbit_trajectory,
     )
+    from bundlefusion_tpu_torch.scripts import common
 
     dev = torch.device("cuda")
-    gpu = _gpu_line()
+    gpu = common.gpu_line()
     build_s = phase_build()
     t0 = time.perf_counter()
     seq = make_sequence_wire(N_FRAMES, intr=default_intrinsics(640, 480), device=dev)
@@ -2156,6 +2213,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cap = phase_capacity(dev)
     cap["phase_s"] = time.perf_counter() - t0
+    bench = phase_bench()
     main_errs = [c["max_abs_err"] for c in sl["main_path_checks"].values()]
     main_errs += [c["max_abs_err"] for c in en["main_path_checks"].values()]
     main_errs += [c["max_abs_err"] for c in cap["main_path_checks"].values()]
@@ -2176,6 +2234,7 @@ def main() -> int:
             "launches_mesh": mesh["engine"]["launches"][name],
             "launches_capacity": cap["launches"][name],
             "launches_large_table": cap["large_table"]["launches"][name],
+            "launches_bench": bench["kernel_launches"][name],
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -2210,6 +2269,7 @@ def main() -> int:
     print(json.dumps({"recorded": rec}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"capacity": cap}))
+    print(json.dumps({"bench": bench}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@ assert not missing, missing
 
 # every module the port holds: a new one is added here with its port
 MODULES = [
-    "__main__", "config", "kernels",
+    "__main__", "bench", "config", "kernels",
     "geometry.camera", "geometry.kabsch", "geometry.lie",
     "io.binary_dump", "io.checkpoint", "io.native", "io.ply", "io.sens", "io.sensors",
     "io.synthetic", "io.tum",
