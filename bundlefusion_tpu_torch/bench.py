@@ -28,7 +28,7 @@ The protocol, as in ``bench.py``:
 Where a key means something else on the card than on the TPU:
 
 - ``platform`` is ``gpu`` on the card (``cpu`` with ``--device cpu``);
-- ``compile_s`` is ``build_s`` (``nvcc`` for the three kernels, run just
+- ``compile_s`` is ``build_s`` (``nvcc`` for the kernels, run just
   before ``warmup`` and reported on its own) plus ``warmup()``'s seconds;
   nothing is traced or compiled besides;
 - ``cache_entries`` counts the files of ``kernels/build/`` (the built

@@ -26,8 +26,10 @@ SOURCES = {
     "tsdf_prepare": "tsdf_prepare.cu",  # image pass: one float4 sample per pixel
     "tsdf_cull": "tsdf_cull.cu",        # frustum cull into a device-side row list
     "tsdf_apply": "tsdf_apply.cu",      # the integrate / de-integrate sweep
+    "kabsch_filter": "kabsch_filter.cu",  # the greedy Kabsch filter, one CTA per pair
 }
 MAX_OPS = 64  # ops per call: one bit each in a row's op mask
+KABSCH_MAX_R = 1024  # raw matches per pair: one thread each
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -109,6 +111,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.bf_tsdf_apply.argtypes = [P] * 11 + [I] * 5 + [F] * 12 + [P]
         lib.bf_tsdf_apply_wave.restype = I
         lib.bf_tsdf_apply_wave.argtypes = []
+    elif name == "kabsch_filter":
+        lib.bf_kabsch_filter.restype = I
+        lib.bf_kabsch_filter.argtypes = [P] * 9 + [I] * 4 + [F] + [P]
 
 
 def _check_cuda(t: torch.Tensor, dtype, what: str, shape=None) -> None:
@@ -236,6 +241,43 @@ def tsdf_apply_wave() -> int:
     """CTAs of the sweep kernel that the current card holds at once: the
     default size of its persistent grid."""
     return int(load("tsdf_apply").bf_tsdf_apply_wave())
+
+
+def kabsch_filter_launch(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered: int,
+                         min_num_matches: int, max_res2: float):
+    """Launch ``kabsch_filter.cu``: the greedy Kabsch filter of P image
+    pairs, one CTA each, on the current stream.
+
+    ``src_pts`` / ``tgt_pts`` [P, R, 3] and ``pix_src`` / ``pix_tgt``
+    [P, R, 2] float32, ``valid`` [P, R] bool (a prefix per pair), R at most
+    ``KABSCH_MAX_R``. Returns ``inlier_mask`` [P, R] bool, ``count`` [P]
+    int64, ``transform`` [P, 4, 4] float32 (src -> tgt) and ``valid_pair``
+    [P] bool, all on the card. Nothing is read back; P = 0 launches
+    nothing."""
+    _check_cuda(valid, torch.bool, "valid")
+    if valid.dim() != 2:
+        raise ValueError(f"valid: need [P, R], got {tuple(valid.shape)}")
+    P, R = valid.shape
+    for t, what, k in ((src_pts, "src_pts", 3), (tgt_pts, "tgt_pts", 3),
+                       (pix_src, "pix_src", 2), (pix_tgt, "pix_tgt", 2)):
+        _check_cuda(t, torch.float32, what, (P, R, k))
+    if R > KABSCH_MAX_R:
+        raise ValueError(f"kabsch_filter: at most {KABSCH_MAX_R} raw matches per pair, got {R}")
+    dev = valid.device
+    inlier = torch.empty((P, R), dtype=torch.bool, device=dev)
+    count = torch.empty((P,), dtype=torch.int64, device=dev)
+    transform = torch.empty((P, 4, 4), dtype=torch.float32, device=dev)
+    valid_pair = torch.empty((P,), dtype=torch.bool, device=dev)
+    if P == 0:
+        return inlier, count, transform, valid_pair
+    lib = load("kabsch_filter")
+    _raise_on(lib.bf_kabsch_filter(
+        src_pts.data_ptr(), tgt_pts.data_ptr(), pix_src.data_ptr(), pix_tgt.data_ptr(),
+        valid.data_ptr(), inlier.data_ptr(), count.data_ptr(), transform.data_ptr(),
+        valid_pair.data_ptr(), int(P), int(R), int(max_filtered), int(min_num_matches),
+        float(max_res2), _stream(valid)), "kabsch_filter")
+    launch_counts["kabsch_filter"] += 1
+    return inlier, count, transform, valid_pair
 
 
 # the culled path's three launchers, at the interfaces of

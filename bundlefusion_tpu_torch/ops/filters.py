@@ -6,13 +6,16 @@ Port of ``bundlefusion_tpu/ops/filters.py`` (the reference's
 ``vmap``-ed over image pairs; here every stage takes a leading pair
 dimension P and the ``*_pair`` forms are the P = 1 case.
 
-The greedy Kabsch filter is two nested data-dependent loops. Under ``vmap``
-JAX runs every pair until the last one has finished and selects per pair;
-this module does the same by hand: one loop over candidate positions shared
-by all pairs, per-pair ``alive`` masks, and updates applied with
-``torch.where``. The host decides when a loop ends and whether a step needs
-a fit at all, so each such test is one small device -> host read;
-``kabsch_filter`` returns their number as ``host_reads``.
+The greedy Kabsch filter is two nested data-dependent loops. On the card
+``kabsch_filter`` launches ``kernels/kabsch_filter.cu``, which runs each
+pair's loops in one CTA and reads nothing back. Its plain version,
+``kabsch_filter_ref``, is what runs on the CPU: as JAX does under ``vmap``,
+it runs every pair until the last one has finished, with one loop over
+candidate positions shared by all pairs, per-pair ``alive`` masks, and
+updates applied with ``torch.where``. There the host decides when a loop
+ends and whether a step needs a fit at all, so each such test is one small
+device -> host read; both return their number as ``host_reads`` (0 for the
+kernel).
 """
 
 from __future__ import annotations
@@ -45,7 +48,30 @@ def _weighted_cov(pts, w):
 
 def kabsch_filter(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered: int = 25,
                   min_num_matches: int = 4, max_res2: float = 4e-4):
-    """Greedy geometric-consistency filter for P image pairs.
+    """Greedy geometric-consistency filter for P image pairs: the arguments
+    and results of :func:`kabsch_filter_ref`.
+
+    On CUDA tensors it launches ``kernels/kabsch_filter.cu`` once (none for
+    P = 0) on the current stream, reads nothing back and returns
+    ``host_reads`` 0; it raises if the kernel cannot be built or launched.
+    On CPU tensors it runs :func:`kabsch_filter_ref`.
+    """
+    if not valid.is_cuda:
+        return kabsch_filter_ref(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered,
+                                 min_num_matches, max_res2)
+    from bundlefusion_tpu_torch.kernels import kabsch_filter_launch
+
+    inlier, count, transform, valid_pair = kabsch_filter_launch(
+        *(x.contiguous() for x in (src_pts, tgt_pts, pix_src, pix_tgt, valid)),
+        max_filtered, min_num_matches, max_res2)
+    return {"inlier_mask": inlier, "count": count, "transform": transform,
+            "valid_pair": valid_pair, "host_reads": 0}
+
+
+def kabsch_filter_ref(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered: int = 25,
+                      min_num_matches: int = 4, max_res2: float = 4e-4):
+    """Greedy geometric-consistency filter for P image pairs, in torch ops:
+    the plain version of ``kernels/kabsch_filter.cu``.
 
     Args:
       src_pts/tgt_pts: [P, R, 3] back-projected keypoint positions of the raw

@@ -75,7 +75,8 @@ def match_and_filter(cur_slot: int, keys: KeyframeStore, cache: DenseCache,
     ``num_inliers`` [P], ``inlier_mask`` [P, R], ``idx_cur``/``idx_prev``
     [P, R], ``p_cur``/``p_prev`` [P, R, 3] back-projected matched keypoints;
     pairs that took no part are all-zero with an identity transform. Also
-    ``kabsch_host_reads``: the device -> host reads of the greedy filter.
+    ``kabsch_host_reads``: the device -> host reads of the greedy filter,
+    which only its plain version makes (on the CPU); the kernel makes none.
     """
     dev = keys.pos.device
     R = params.num_raw_matches

@@ -12,7 +12,14 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    pass, cull, sweep) and the op as a whole against the plain PyTorch
    versions on the card at the main path's shapes (1 op / 1 image and
    11 ops / 6 images), show that one call of the op waits for nothing, and
-   time everything in turns;
+   time everything in turns; then the greedy Kabsch filter's kernel against
+   its plain version (``kabsch_filter_ref``) on the real matches of the first
+   window's 11 frames: the last frame's call (10 pairs of 128 raw matches)
+   and the window's 55 pairs as a global match of 64: validity, counts and
+   masks equal (on a pair that the plain version itself decides differently
+   on the card and on the CPU, float32 rounding decides it, and the kernel
+   must give one of its two answers), transforms within 1e-4, two calls
+   bit for bit, one call waiting for nothing, times in turns;
 3. slice: drive the engine over 40 synthetic frames at poses with 1 cm of
    noise, pushing the noise-free poses after frames 10, 20 and 30 (as
    submap retirements do) and at the end, then drain the re-integration
@@ -26,12 +33,15 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    surface-area -> dense-verify cascade, correspondences, chained pose),
    one read-back of pose and validity, the TSDF dispatch, bookkeeping, the
    render; at every 10th frame the window rolls over and the chained pose
-   becomes the new window's base. Run once with one wait per frame (frame
-   times, checks), once more with a wait around every stage (stage times;
-   the validity flags must repeat), then 5 frames of ``_frame_step`` under
-   the profiler (launches per frame, busy share) and 2 with a trace and an
-   op counter per stage (launches and dispatched ops by stage). It fails
-   unless all 40
+   becomes the new window's base. Runs in turns with the greedy filter's
+   kernel and with its plain version patched in (``_PlainKabsch``; the
+   package has no switch): once each with one wait per frame (frame times,
+   checks on the kernel's run), once each with a wait around every stage
+   (stage times, the filter's host reads), then for each 5 frames of
+   ``_frame_step`` under the profiler (launches per frame, busy share) and 2
+   with a trace and an op counter per stage (launches and dispatched ops by
+   stage). The four runs' validity flags must be equal and the kernel's runs
+   must read nothing back for the filter. It fails unless all 40
    frames are valid, the chained trajectory's ATE RMSE is under 0.10 m,
    the render at the last pose is within 2 voxels of the true depth, the
    table's invariants hold and no allocation failed;
@@ -52,7 +62,7 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    fails unless all 40 frames are valid, the optimized trajectory's ATE RMSE
    is under 0.10 m, 4 submaps were dispatched and at least 3 keyframes are
    valid, a re-integration dispatch came out of the engine's own pose
-   updates and equals its plain version, all three kernels were launched,
+   updates and equals its plain version, all four kernels were launched,
    the render at the last pose is within 2 voxels of the true depth, the
    table's invariants hold, no allocation failed and the mesh has more than
    10 000 triangles;
@@ -127,7 +137,7 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    16 replayed with a wait around every stage, 20 streamed, then
    ``finish(extra_solves=2)``). It fails unless the command exits 0 on the
    card with 108 of 108 frames valid, no pair dropped, the ATE under 0.10 m
-   and all three kernels launched.
+   and all four kernels launched.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
@@ -140,7 +150,17 @@ engine phase's first run, ``launches_recorded`` the whole recorded phase,
 ``launches_mesh`` rank 0's mesh engine run (c), ``launches_capacity`` the
 drift demo run of the capacity phase, ``launches_large_table`` its run (e),
 ``launches_bench`` the bench's whole run (its own process, counted from 0);
-the counts are set to 0 just before each. ``large_table`` in the
+the counts are set to 0 just before each. For ``kabsch_filter``, whose main
+path is the per-frame path (the fusion half runs no match), ``launches`` is
+the frontend phase's first run, as ``launches_frontend``; its ``ms`` /
+``plain_ms`` (CUDA events, host enqueue included) and ``kernel_ms`` (the
+profiler) are at 10 pairs, ``_64`` at 64; ``bound_ms`` counts the inputs
+and outputs once and the fits these inputs need (counted by the plain
+version on the CPU, pair by pair) at ``FLOP_PER_FIT`` and
+``FLOP_PER_MASKED_MATCH``: the work is a serial chain of dependent fits per
+pair, so the kernel sits far above it; ``mismatching_pairs`` counts pairs
+unlike the plain version's on the card, ``plain_card_cpu_split_pairs``
+those the plain version decides differently on the card and the CPU. ``large_table`` in the
 ``tsdf_apply`` entry has the op's ``ms`` / ``plain_ms`` by CUDA events at
 run (e)'s checked dispatches, its live and changed rows, and the bound from
 the changed rows. In
@@ -161,7 +181,7 @@ back; for
 ``tsdf_prepare`` and ``tsdf_cull`` one call of the launcher, ``plain_ms``
 their plain versions. ``max_abs_err`` of ``tsdf_cull`` is the number of rows
 that the full plain sweep changes and the list lacks. ``library_ms`` is null:
-no single PyTorch call computes any of the three. Any failed phase raises
+no single PyTorch call computes any of the four. Any failed phase raises
 and exits non-zero; without CUDA it exits non-zero before doing anything.
 
     python3 chip_smoke.py
@@ -169,6 +189,7 @@ and exits non-zero; without CUDA it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -200,7 +221,17 @@ REPLACES = {
     "tsdf_prepare": "bundlefusion_tpu/tsdf/apply_pallas.py:620",
     "tsdf_cull": "bundlefusion_tpu/tsdf/apply_pallas.py:554",
     "tsdf_apply": "bundlefusion_tpu/tsdf/apply_pallas.py:104",
+    "kabsch_filter": "bundlefusion_tpu/ops/filters.py:80",
 }
+TSDF_KERNELS = ("tsdf_prepare", "tsdf_cull", "tsdf_apply")  # the fused TSDF op's three
+KABSCH_PAIRS = (10, 64)     # the greedy filter: one frame's pairs, a global match's
+KABSCH_T_ATOL = 1e-4        # kernel vs plain transforms (tests/test_torch_filters.py)
+# operations of one greedy-filter fit, counted from the plain version's
+# arithmetic: the 4x4 algebra (N, 7 squarings with their norms, q, R, t, the
+# three 3x3 eigenvalue solves) once, and per masked match the weight, centroid,
+# cross-covariance, covariance and residual terms
+FLOP_PER_FIT = 1450
+FLOP_PER_MASKED_MATCH = 110
 
 
 def _sync():
@@ -491,6 +522,166 @@ def phase_kernels(dev, seq, noisy, gt, app):
     return out
 
 
+def _fusion_launches_ok(launches, dispatches) -> bool:
+    """The fusion half's launches: each TSDF kernel once per dispatch, and
+    the greedy filter, which only the frontend runs, never."""
+    from bundlefusion_tpu_torch import kernels
+
+    return (dispatches > 0 and set(launches) == set(kernels.SOURCES)
+            and all(launches[k] == dispatches for k in TSDF_KERNELS)
+            and launches["kabsch_filter"] == 0)
+
+
+def _filter_inputs(dev, seq, app, bundling, sift_cfg):
+    """The greedy filter's inputs as ``_frame_step`` hands them over: the
+    first window's 11 frames (frame f is matched against the f before it)
+    at the engine's default configuration. Returns (the last frame's 10
+    pairs, all 55 pairs pooled), each the five input tensors."""
+    from bundlefusion_tpu_torch.config import BundlingConfig
+    from bundlefusion_tpu_torch.pipeline import frontend
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+
+    eng = BundleFusion(seq["intrinsics"], app, bundling or BundlingConfig(), sift_cfg=sift_cfg,
+                       max_keyframes=N_FRAMES // 10 + 2, device=dev)
+    calls, inner = [], frontend.kabsch_filter
+
+    def capture(*args):
+        calls.append([a.clone() for a in args[:5]])
+        return inner(*args)
+
+    frontend.kabsch_filter = capture
+    try:
+        for f in range(eng.S):
+            eng._frame_step(seq["depth"][f], seq["color"][f], f, eng._store_slot(f))
+    finally:
+        frontend.kabsch_filter = inner
+    del eng
+    torch.cuda.empty_cache()
+    if [c[4].shape[0] for c in calls] != list(range(1, KABSCH_PAIRS[0] + 1)):
+        raise AssertionError(f"frame_step handed the filter {[c[4].shape for c in calls]}")
+    return calls[-1], [torch.cat([c[i] for c in calls]) for i in range(5)]
+
+
+def _same_pairs(a, b):
+    """Per pair of two filter results: validity, count and mask equal."""
+    return ((a["valid_pair"] == b["valid_pair"]) & (a["count"] == b["count"])
+            & (a["inlier_mask"] == b["inlier_mask"]).all(-1))
+
+
+def _kabsch_work(args):
+    """(fits, masked matches summed over the fits) that each pair of
+    ``args`` needs: the plain version run on one pair at a time on the CPU,
+    counting its fits by their covariance call, which gets the fit's mask."""
+    from bundlefusion_tpu_torch.ops import filters
+
+    inner, seen = filters._weighted_cov, []
+
+    def counted(pts, w):
+        seen.append(float(w[0].sum()))
+        return inner(pts, w)
+
+    host = [a.cpu() for a in args]
+    work = []
+    filters._weighted_cov = counted
+    try:
+        for p in range(host[0].shape[0]):
+            seen.clear()
+            filters.kabsch_filter_ref(*(a[p:p + 1] for a in host))
+            work.append((len(seen), sum(seen)))
+    finally:
+        filters._weighted_cov = inner
+    return work
+
+
+def phase_kabsch(dev, seq, app, bundling=None, sift_cfg=None):
+    """The greedy Kabsch filter's kernel against its plain version on the
+    card, on real matches of the first window at 10 pairs (one frame's call)
+    and 64 (the pool, as a global match at G = 64 has it): every pair's
+    validity, count and mask equal the plain version's on the card (or, on
+    a pair that the plain version decides differently on the card and on
+    the CPU, its CPU answer) and transforms within KABSCH_T_ATOL,
+    two calls equal bit for bit, one call waiting for nothing; then times
+    in turns and the bound from the work these inputs need. ``bundling`` /
+    ``sift_cfg`` default to the engine's."""
+    from bundlefusion_tpu_torch.ops import filters
+
+    args_fp = (25, 4, 4e-4)
+    last, pool = _filter_inputs(dev, seq, app, bundling, sift_cfg)
+    n_pool = pool[0].shape[0]
+    work = _kabsch_work(pool)
+    out = {}
+    for pairs in KABSCH_PAIRS:
+        if pairs == KABSCH_PAIRS[0]:
+            args, rows = last, list(range(n_pool - pairs, n_pool))
+        else:
+            rows = [i % n_pool for i in range(pairs)]
+            args = [a[rows].contiguous() for a in pool]
+
+        def run_kernel():
+            return filters.kabsch_filter(*args, *args_fp)
+
+        def run_plain():
+            return filters.kabsch_filter_ref(*args, *args_fp)
+
+        got, want = run_kernel(), run_plain()
+        cpu = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in
+               filters.kabsch_filter_ref(*(a.cpu() for a in args), *args_fp).items()}
+        _sync()
+        # a pair that the plain version decides one way on the card and
+        # another on the CPU is decided by float32 rounding: there the
+        # kernel must give one of the two answers
+        split = ~_same_pairs(want, cpu)
+        as_card, as_cpu = _same_pairs(got, want), _same_pairs(got, cpu)
+        bad = ~(as_card | (split & as_cpu))
+        t_err = max(float((got["transform"] - ref["transform"]).abs().amax((-1, -2))[same]
+                          .max()) if bool(same.any()) else 0.0
+                    for same, ref in ((as_card, want), (~as_card, cpu)))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = run_kernel()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync()
+        repeat = (all(torch.equal(got[k], again[k])
+                      for k in ("valid_pair", "count", "inlier_mask"))
+                  and torch.equal(got["transform"].view(torch.int32),
+                                  again["transform"].view(torch.int32)))
+        if int(bad.sum()) or not t_err <= KABSCH_T_ATOL or not repeat:
+            raise AssertionError(f"kabsch_filter at {pairs} pairs: pairs "
+                                 f"{bad.nonzero().flatten().tolist()} differ from the plain "
+                                 f"version (card / CPU split: "
+                                 f"{split.nonzero().flatten().tolist()}), transforms by "
+                                 f"{t_err}, two calls equal: {repeat}")
+        times = {run_kernel: [], run_plain: []}
+        order = (run_plain, run_kernel)
+        for r in range(REPS):
+            for fn in order if r % 2 == 0 else order[::-1]:
+                _sync()
+                times[fn].append(_event_ms(fn))
+        R = args[4].shape[1]
+        fits = sum(work[i][0] for i in rows)
+        masked = sum(work[i][1] for i in rows)
+        out[str(pairs)] = {
+            "pairs": pairs,
+            "raw_matches": int(args[4].sum()),
+            "valid_pairs": int(want["valid_pair"].sum()),
+            "inliers": int(want["count"].sum()),
+            "fits": fits,
+            "mismatching_pairs": int((~as_card).sum()),   # against the plain on the card
+            "plain_card_cpu_split_pairs": int(split.sum()),
+            "max_abs_err": t_err,
+            "ms": statistics.median(times[run_kernel]),
+            "plain_ms": statistics.median(times[run_plain]),
+            "plain_host_reads": want["host_reads"],
+            "kernel_ms": _kernel_device_ms(run_kernel, "kabsch_filter_kernel"),
+            # inputs once (points, pixels, valid), outputs once (mask,
+            # count, transform, valid_pair); the fits these inputs need
+            "bound": _bound(pairs * R * (4 * 10 + 1 + 1) + pairs * (8 + 64 + 1),
+                            fits * FLOP_PER_FIT + masked * FLOP_PER_MASKED_MATCH),
+        }
+    return out
+
+
 def _live_rows(table) -> int:
     return int((table.slot_keys[:-1] != EMPTY_KEY).sum())
 
@@ -652,8 +843,7 @@ def phase_slice(dev, seq, noisy, gt, app):
     med_err, hit = _depth_err(eng._render(eng.table, gt[N_FRAMES - 1])["depth"], seq,
                               N_FRAMES - 1)
 
-    if checker.dispatches == 0 or set(launches) != set(kernels.SOURCES) or any(
-            n != checker.dispatches for n in launches.values()):
+    if not _fusion_launches_ok(launches, checker.dispatches):
         raise AssertionError(f"kernel launches {launches} != TSDF dispatches {checker.dispatches}")
     if set(checker.checked) != {"fast", "rows"}:
         raise AssertionError(f"main-path kernel checks incomplete: {checker.checked}")
@@ -746,6 +936,25 @@ class _CountedStage:
                 ms_n = self.total["kernels"].setdefault(e.key[:80], [0.0, 0])
                 ms_n[0] += e.self_device_time_total / 1e3
                 ms_n[1] += e.count
+        return False
+
+
+class _PlainKabsch:
+    """Runs the frontend's greedy filter as its plain version
+    (``kabsch_filter_ref``, torch ops and host reads) while active: the
+    comparison run of ``phase_frontend``. The package has no such switch;
+    this patches the name ``match_and_filter`` calls."""
+
+    def __enter__(self):
+        from bundlefusion_tpu_torch.ops import filters
+        from bundlefusion_tpu_torch.pipeline import frontend
+
+        self.frontend, self.inner = frontend, frontend.kabsch_filter
+        frontend.kabsch_filter = filters.kabsch_filter_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.frontend.kabsch_filter = self.inner
         return False
 
 
@@ -881,13 +1090,80 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
             keys.append(eng.local.keys.valid[0 if cur_slot == eng.S - 1 else cur_slot].sum())
         return frame_ms, valid, coarse, torch.stack(keys).cpu().numpy()
 
-    # ---- run A: one wait per frame; the checks ----
-    eng = engine()
-    for name in kernels.launch_counts:
-        kernels.launch_counts[name] = 0
-    torch.cuda.reset_peak_memory_stats()
-    frame_ms, valid, coarse_a, keys = drive(eng, stage_syncs=False)
-    launches = dict(kernels.launch_counts)
+    def counted_run(plain):
+        """Run A: one wait per frame; the kernel launches, frame times and
+        flags (``plain``: the greedy filter's plain version)."""
+        eng = engine()
+        for name in kernels.launch_counts:
+            kernels.launch_counts[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        with _PlainKabsch() if plain else contextlib.nullcontext():
+            frame_ms, valid, coarse, keys = drive(eng, stage_syncs=False)
+        return eng, frame_ms, valid, coarse, keys, dict(kernels.launch_counts)
+
+    def staged_run(plain):
+        """Run B: a wait around every stage, the probe on: stage times,
+        flags, raw / filtered matches and the filter's host reads."""
+        eng = engine()
+        with _PlainKabsch() if plain else contextlib.nullcontext(), _FrontendProbe() as probe:
+            frame_ms, valid, coarse, _ = drive(eng, stage_syncs=True)
+        out = {"frame_ms_median_with_stage_syncs": statistics.median(frame_ms),
+               "stage_ms_median": _stage_ms(eng.timing, coarse), **probe.summary()}
+        out["ate_rmse_m"], _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
+        del eng
+        torch.cuda.empty_cache()
+        return out, valid
+
+    def profiled_run(plain):
+        """Run C: ``_frame_step`` alone under the profiler (launches, device
+        time, busy share), then two frames with a trace and an op counter
+        per stage."""
+        eng = engine()
+        first = min(n_frames - FRONTEND_PROFILE_FRAMES - 2, bundling.submap_size + 1)
+        for f in range(first):
+            _drive_frontend_frame(eng, seq, f, lambda _name, fn: fn())
+        _sync()
+        sub_len = eng.S - 1
+        with _PlainKabsch() if plain else contextlib.nullcontext():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for f in range(first, first + FRONTEND_PROFILE_FRAMES):
+                    eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len,
+                                    eng._store_slot(f))
+                _sync()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            device_ms = sum(e.self_device_time_total for e in evs) / 1e3
+            if not device_ms > 0:
+                raise AssertionError("the profiler's trace holds no device time")
+            evs.sort(key=lambda e: -e.self_device_time_total)
+            n_prof = FRONTEND_PROFILE_FRAMES
+            # two more frames, each stage under its own trace and op counter
+            eng.timing = counts = _StageCounts()
+            n_counted = 2
+            for f in range(first + n_prof, first + n_prof + n_counted):
+                eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len,
+                                eng._store_slot(f))
+        per_stage = {k: {name: v / n_counted for name, v in tot.items()}
+                     for k, tot in sorted(counts.totals.items())}
+        del eng
+        torch.cuda.empty_cache()
+        return {
+            "frames": n_prof,
+            "first_frame": first,
+            "cuda_kernels_per_frame": sum(e.count for e in evs) / n_prof,
+            "dispatched_ops_per_frame": sum(v["dispatched_ops"] for v in per_stage.values()),
+            "wall_ms_per_frame": wall_ms / n_prof,
+            "device_ms_per_frame": device_ms / n_prof,
+            "device_busy_share": device_ms / wall_ms,
+            "top_device_ms_per_frame": [[e.key[:80], e.self_device_time_total / 1e3 / n_prof,
+                                         e.count / n_prof] for e in evs[:10]],
+            "per_stage": per_stage,
+        }
+
+    # ---- run A with the kernel: the checks ----
+    eng, frame_ms, valid, coarse_a, keys, launches = counted_run(plain=False)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     host_ms = _stage_ms(eng.timing, coarse_a)
 
@@ -901,7 +1177,7 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
     if not all(valid):
         raise AssertionError(f"frames lost: {[f for f, v in enumerate(valid) if not v]}")
     if any(n == 0 for n in launches.values()) or set(launches) != set(kernels.SOURCES):
-        raise AssertionError(f"a TSDF kernel was never launched on the frontend path: {launches}")
+        raise AssertionError(f"a kernel was never launched on the frontend path: {launches}")
     if not (n_ate == n_frames and ate < ATE_MAX_M):
         raise AssertionError(f"chained ATE RMSE {ate} m over {n_ate} frames (limit {ATE_MAX_M})")
     if any(inv.values()) or fails:
@@ -911,81 +1187,58 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
     del eng
     torch.cuda.empty_cache()
 
-    # ---- run B: a wait around every stage; the flags must repeat ----
-    eng = engine()
-    with _FrontendProbe() as probe:
-        frame_ms_b, valid_b, coarse_b, _ = drive(eng, stage_syncs=True)
-    if valid_b != valid:
-        raise AssertionError(f"validity flags differ between two runs: {valid} vs {valid_b}")
-    stats = probe.summary()
-    if stats["valid_pairs_per_frame_min"] < 1:
+    # ---- in turns: run A with the plain filter, run B plain, run B kernel ----
+    eng, frame_ms_p, valid_p, coarse_p, _, launches_p = counted_run(plain=True)
+    host_ms_p = _stage_ms(eng.timing, coarse_p)
+    ate_p, _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
+    del eng
+    torch.cuda.empty_cache()
+    staged_p, valid_bp = staged_run(plain=True)
+    staged, valid_b = staged_run(plain=False)
+    if not valid_b == valid_bp == valid_p == valid:
+        raise AssertionError(f"validity flags differ between the runs (kernel A, plain A, "
+                             f"plain B, kernel B): {valid} {valid_p} {valid_bp} {valid_b}")
+    if any(launches_p[k] != launches[k] for k in TSDF_KERNELS) or launches_p["kabsch_filter"]:
+        raise AssertionError(f"plain run launches {launches_p} against {launches}")
+    if staged["valid_pairs_per_frame_min"] < 1:
         raise AssertionError("a frame after the first had no valid pair")
-    stage_ms = _stage_ms(eng.timing, coarse_b)
-    ate_b, _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
-    del eng
-    torch.cuda.empty_cache()
-
-    # ---- run C: _frame_step alone under the profiler ----
-    eng = engine()
-    first = min(n_frames - FRONTEND_PROFILE_FRAMES - 2, bundling.submap_size + 1)
-    for f in range(first):
-        _drive_frontend_frame(eng, seq, f, lambda _name, fn: fn())
-    _sync()
-    sub_len = eng.S - 1
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in range(first, first + FRONTEND_PROFILE_FRAMES):
-            eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len, eng._store_slot(f))
-        _sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    if not device_ms > 0:
-        raise AssertionError("the profiler's trace holds no device time")
-    evs.sort(key=lambda e: -e.self_device_time_total)
-    n_prof = FRONTEND_PROFILE_FRAMES
-
-    # two more frames, each stage under its own trace and op counter
-    eng.timing = counts = _StageCounts()
-    n_counted = 2
-    for f in range(first + n_prof, first + n_prof + n_counted):
-        eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len, eng._store_slot(f))
-    per_stage = {k: {name: v / n_counted for name, v in tot.items()}
-                 for k, tot in sorted(counts.totals.items())}
-    del eng
-    torch.cuda.empty_cache()
+    if staged["kabsch_host_reads_per_frame_max"] != 0:
+        raise AssertionError(f"the kernel's filter read the card: {staged}")
+    stage_ms = staged.pop("stage_ms_median")
+    frame_step_profile = profiled_run(plain=False)
+    frame_step_profile_plain = profiled_run(plain=True)
 
     return {
         "frames": n_frames,
         "all_valid": True,
         "ate_rmse_m": ate,
-        "ate_rmse_m_second_run": ate_b,
+        "ate_rmse_m_second_run": staged.pop("ate_rmse_m"),
         "render_median_abs_err_m": med_err,
         "alloc_failures": fails,
         "launches": launches,
         "frame_ms_median": statistics.median(frame_ms),
         "frame_ms_max": max(frame_ms[1:]),
-        "frame_ms_median_with_stage_syncs": statistics.median(frame_ms_b),
+        "frame_ms_median_with_stage_syncs": staged.pop("frame_ms_median_with_stage_syncs"),
         "stage_ms_median": stage_ms,
         "stage_host_ms_median": host_ms,
         "keys_per_frame_mean": float(keys.mean()),
         "keys_per_frame_min": int(keys.min()),
-        **stats,
+        **staged,
         "live_corrs_last_window": live_corrs,
         "live_blocks": live_blocks,
         "peak_mem_gb": peak_gb,
-        "frame_step_profile": {
-            "frames": n_prof,
-            "first_frame": first,
-            "cuda_kernels_per_frame": sum(e.count for e in evs) / n_prof,
-            "dispatched_ops_per_frame": sum(v["dispatched_ops"] for v in per_stage.values()),
-            "wall_ms_per_frame": wall_ms / n_prof,
-            "device_ms_per_frame": device_ms / n_prof,
-            "device_busy_share": device_ms / wall_ms,
-            "top_device_ms_per_frame": [[e.key[:80], e.self_device_time_total / 1e3 / n_prof,
-                                         e.count / n_prof] for e in evs[:10]],
-            "per_stage": per_stage,
+        "frame_step_profile": frame_step_profile,
+        # the same frames with the greedy filter's plain version, in turns
+        # with the kernel (kernel A, plain A, plain B, kernel B); flags equal
+        "plain_filter": {
+            "valid_equal": True,
+            "ate_rmse_m": ate_p,
+            "launches": launches_p,
+            "frame_ms_median": statistics.median(frame_ms_p),
+            "frame_ms_max": max(frame_ms_p[1:]),
+            "stage_host_ms_median": host_ms_p,
+            "frame_step_profile": frame_step_profile_plain,
+            **staged_p,
         },
     }
 
@@ -1705,7 +1958,7 @@ def _mesh_map(mesh, dev, seq, noisy, gt, app, bundling):
     }
     apply = make_sharded_apply(mesh, base.num_blocks, intr, params)
     out = {"rows_per_rank": base.num_blocks // mesh.size}
-    launches = dict.fromkeys(kernels.SOURCES, 0)
+    launches = dict.fromkeys(TSDF_KERNELS, 0)
     for name, batch in batches.items():
         ref = base.clone()
         apply_tsdf_ops(ref, *batch, intr, params)
@@ -2008,8 +2261,7 @@ def _large_table(dev) -> dict:
                              f"live rows: {out}")
     if any(out["invariants"].values()) or out["alloc_failures"]:
         raise AssertionError(f"phase_capacity (e): invariants or allocation failures: {out}")
-    if set(launches) != set(kernels.SOURCES) or any(
-            n != checker.dispatches for n in launches.values()):
+    if not _fusion_launches_ok(launches, checker.dispatches):
         raise AssertionError(f"phase_capacity (e): launches != TSDF dispatches: {out}")
     if not med_err < 2 * eng.tsdf_params.voxel_size:
         raise AssertionError(f"phase_capacity (e): render median |depth - GT| {med_err} m")
@@ -2117,6 +2369,37 @@ def phase_capacity(dev, boundary_g=640, per_pair=25, overflow=CAPACITY_OVERFLOW)
 
 
 BENCH_TIMEOUT_S = 400   # the bench command's time limit (its child is killed then)
+# the bench with the greedy filter's plain version patched in (the package
+# has no switch): ``python -c PLAIN_BENCH --cache DIR``
+PLAIN_BENCH = """import sys
+from bundlefusion_tpu_torch.ops import filters
+from bundlefusion_tpu_torch.pipeline import frontend
+frontend.kabsch_filter = filters.kabsch_filter_ref
+from bundlefusion_tpu_torch import bench
+bench.main(sys.argv[1:])
+"""
+BENCH_KEYS = ("value", "ms_per_frame", "fps_streaming", "valid_frames", "pairs_dropped",
+              "ate_rmse_cm", "reint_frames", "reint_ops", "reint_frames_timed",
+              "reint_ops_timed", "stage_ms", "stage_dev_ms", "kernel_launches", "phase_s")
+
+
+def _bench_child(cache, plain=False) -> dict:
+    """One run of the bench command in a child process; its last line."""
+    import os
+
+    cmd = ["-c", PLAIN_BENCH] if plain else ["-m", "bundlefusion_tpu_torch.bench"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, *cmd, "--cache", cache],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase_bench: the bench{' (plain filter)' if plain else ''} "
+                           f"exited {proc.returncode}:\n{proc.stderr[-8000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    line["phase_s"] = time.perf_counter() - t0
+    return line
 
 
 def phase_bench() -> dict:
@@ -2126,8 +2409,10 @@ def phase_bench() -> dict:
     cached in a temporary directory. Returns its last line's dict; raises
     unless the command exits 0 on the card with every frame of its windows
     (108) valid, no pair dropped, the ATE under ``ATE_MAX_M`` and every
-    kernel launched."""
-    import os
+    kernel launched. Then, in turns, the same command with the greedy
+    filter's plain version patched in and once more as it is: their main
+    numbers go under ``plain_filter`` and ``kernel_again``, and the plain
+    run must keep every frame valid and launch no filter kernel."""
     import shutil
     import tempfile
 
@@ -2137,20 +2422,12 @@ def phase_bench() -> dict:
 
     torch.cuda.empty_cache()   # leave the child the memory the earlier phases cached
     tmp = tempfile.mkdtemp(prefix="bf_bench_")
-    t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "bundlefusion_tpu_torch.bench", "--cache", tmp],
-            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-            timeout=BENCH_TIMEOUT_S,
-        )
+        line = _bench_child(tmp)
+        plain = _bench_child(tmp, plain=True)
+        again = _bench_child(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"phase_bench: the bench exited {proc.returncode}:\n"
-                           f"{proc.stderr[-8000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    line["phase_s"] = time.perf_counter() - t0
     launches = line["kernel_launches"]
     bad = []
     if line["platform"] != "gpu":
@@ -2163,8 +2440,13 @@ def phase_bench() -> dict:
         bad.append(f"ATE {line['ate_rmse_cm']} cm")
     if set(launches) != set(kernels.SOURCES) or any(n <= 0 for n in launches.values()):
         bad.append(f"kernel launches {launches}")
+    if plain["valid_frames"] != n_frames or plain["kernel_launches"]["kabsch_filter"]:
+        bad.append(f"plain filter run: {plain['valid_frames']} valid, launches "
+                   f"{plain['kernel_launches']}")
     if bad:
         raise AssertionError(f"phase_bench: {'; '.join(bad)}: {json.dumps(line)}")
+    line["plain_filter"] = {k: plain[k] for k in BENCH_KEYS}
+    line["kernel_again"] = {k: again[k] for k in BENCH_KEYS}
     return line
 
 
@@ -2193,6 +2475,7 @@ def main() -> int:
 
     app = AppConfig()
     kern = phase_kernels(dev, seq, noisy, gt, app)
+    kab = phase_kabsch(dev, seq, app)
     sl = phase_slice(dev, seq, noisy, gt, app)
     prof = phase_profile(dev, seq, noisy, gt, app)
     t0 = time.perf_counter()
@@ -2219,15 +2502,14 @@ def main() -> int:
     main_errs += [c["max_abs_err"] for c in cap["main_path_checks"].values()]
     main_errs += [c["max_abs_err"] for c in cap["large_table"]["checks"].values()]
 
-    def entry(name, sub, extra_err=()):
-        k11 = kern["11op"][sub] if sub else kern["11op"]
-        k1 = kern["1op"][sub] if sub else kern["1op"]
-        e = {
+    def launches(name, main):
+        return {
             "name": name,
             "route": "cuda",
             "source": f"bundlefusion_tpu_torch/kernels/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": sl["launches"][name],
+            "launches": main,
+            "launches_slice": sl["launches"][name],
             "launches_frontend": fe["launches"][name],
             "launches_engine": en["launches"][name],
             "launches_recorded": rec["launches"][name],
@@ -2235,6 +2517,13 @@ def main() -> int:
             "launches_capacity": cap["launches"][name],
             "launches_large_table": cap["large_table"]["launches"][name],
             "launches_bench": bench["kernel_launches"][name],
+        }
+
+    def entry(name, sub, extra_err=()):
+        k11 = kern["11op"][sub] if sub else kern["11op"]
+        k1 = kern["1op"][sub] if sub else kern["1op"]
+        e = {
+            **launches(name, sl["launches"][name]),
             "max_abs_err": max([k11["max_abs_err"], k1["max_abs_err"], *extra_err]),
             "library_ms": None,
         }
@@ -2247,6 +2536,25 @@ def main() -> int:
         e["bound_ms_1op"], e["bound_by_1op"] = k1["bound"]
         return e
 
+    def kabsch_entry():
+        k10, k64 = (kab[str(n)] for n in KABSCH_PAIRS)
+        e = {
+            # its main path is the per-frame path: phase_frontend's kernel run
+            **launches("kabsch_filter", fe["launches"]["kabsch_filter"]),
+            "max_abs_err": max(k10["max_abs_err"], k64["max_abs_err"]),
+            "mismatching_pairs": k10["mismatching_pairs"] + k64["mismatching_pairs"],
+            "library_ms": None,
+        }
+        e["plain_card_cpu_split_pairs"] = (k10["plain_card_cpu_split_pairs"]
+                                           + k64["plain_card_cpu_split_pairs"])
+        for key in ("ms", "plain_ms", "kernel_ms", "plain_host_reads", "pairs", "valid_pairs",
+                    "fits"):
+            e[key] = k10[key]
+            e[key + "_64"] = k64[key]
+        e["bound_ms"], e["bound_by"] = k10["bound"]
+        e["bound_ms_64"], e["bound_by_64"] = k64["bound"]
+        return e
+
     big = cap["large_table"]["checks"]
     kernels_line = {"kernels": [
         entry("tsdf_prepare", "prepare"),
@@ -2257,6 +2565,7 @@ def main() -> int:
          "large_table": {k: {key: c[key] for key in ("ops", "live_rows", "rows_changed", "ms",
                                                      "plain_ms", "bound", "max_abs_err")}
                          for k, c in big.items()}},
+        kabsch_entry(),
     ]}
     sl["profile"] = prof
     sl["build_s"] = build_s

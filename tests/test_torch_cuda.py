@@ -21,6 +21,16 @@ single-device PCG solve on the CPU. The boundary of
 ``scripts.profile_boundary`` at G = 32 runs on the card against the CPU,
 exact and past both working-set caps.
 
+The greedy Kabsch filter's kernel is held against its plain version on
+the card: on real matches of the synthetic orbit at the per-frame shape (10
+pairs of 128 raw matches) and at a global one (64 pairs), and on the edge
+cases of ``tests/torch_kabsch_cases.py``; masks, counts and validity equal,
+transforms within 1e-4 (the plain version's tiny products go through cuBLAS,
+the kernel rounds each product and sum in order), two calls bit for bit equal
+and none waiting for the device. A pair that the plain version itself
+decides one way on the card and another on the CPU (float32 rounding decides
+it) must get one of its two answers.
+
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
 bitwise; the cull a superset of the rows the plain full sweep changes; the
@@ -43,6 +53,7 @@ from bundlefusion_tpu_torch.tsdf import table as ttab
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-6
+TSDF_KERNELS = ("tsdf_prepare", "tsdf_cull", "tsdf_apply")  # the fused TSDF op's three
 PARAMS = tint.TsdfParams(voxel_size=0.04, truncation=0.12, max_integration_distance=4.0)
 
 
@@ -86,10 +97,11 @@ def test_kernel_matches_plain(setup, signs, img):
     poses[1::2, 0, 3] += 0.02  # the re-integration pose differs from the old one
     k, r = base.clone(), base.clone()
     before = dict(kernels.launch_counts)
+    after = {name: n + (name in TSDF_KERNELS) for name, n in before.items()}
     apply_ops.apply_tsdf_ops(k, D, C, poses, s, im, intr, PARAMS)
-    assert kernels.launch_counts == {name: n + 1 for name, n in before.items()}
+    assert kernels.launch_counts == after
     apply_ops.apply_tsdf_ops_ref(r, D, C, poses, s, im, intr, PARAMS)
-    assert kernels.launch_counts == {name: n + 1 for name, n in before.items()}
+    assert kernels.launch_counts == after
     torch.cuda.synchronize()
     assert torch.equal(k.weight, r.weight)
     assert float((k.sdf - r.sdf).abs().max()) <= ATOL
@@ -482,7 +494,8 @@ def test_sharded_apply_on_card_matches_plain(setup, tmp_path):
     ref = t.clone()
     apply_ops.apply_tsdf_ops_ref(ref, Dh[:2], Ch[:2], Ph[:2], [1.0, 1.0], [0, 1], intr, PARAMS)
     for r in ranks:
-        assert all(r["launches"][k] >= 3 for k in kernels.SOURCES), r["launches"]
+        assert all(r["launches"][k] >= 3 for k in TSDF_KERNELS), r["launches"]
+        assert r["launches"]["kabsch_filter"] == 0
         out = r["integrated"]
         np.testing.assert_array_equal(out["weight"], ref.weight.numpy())
         np.testing.assert_allclose(out["sdf"], ref.sdf.numpy(), rtol=0, atol=ATOL)
@@ -539,3 +552,121 @@ def test_boundary_calls_on_card_match_cpu(setup, caps):
     for k in ("poses", "poses_after_prune"):
         np.testing.assert_allclose(card[k], host[k], rtol=0, atol=1e-4)
     assert all(v is not None and v > 0 for v in card["times"].values())
+
+
+# ---------------------------------------------------------------------------
+# the greedy Kabsch filter: the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+KABSCH_ARGS = (25, 4, 4e-4)  # max_filtered, min_num_matches, max_res2
+KABSCH_T_ATOL = 1e-4
+
+
+def _pairs_equal(a, b):
+    """Per pair: validity, count and mask equal."""
+    return ((a["valid_pair"] == b["valid_pair"]) & (a["count"] == b["count"])
+            & (a["inlier_mask"] == b["inlier_mask"]).all(-1))
+
+
+def _filter_outputs_equal(got, want, args):
+    """The kernel's masks, counts and validity equal the plain version's on
+    the card, and its transforms are within KABSCH_T_ATOL, on every pair the
+    plain version decides alike on the card and on the CPU. A pair where
+    those two differ is one that float32 rounding decides (a 3-point fit's
+    condition number: the eigenvalues of H^T H that it divides lie below
+    the closed-form solve's rounding); there the kernel must give one of
+    the plain version's two answers."""
+    from bundlefusion_tpu_torch.ops import filters
+
+    cpu = {k: v.to(got["count"].device) if isinstance(v, torch.Tensor) else v
+           for k, v in filters.kabsch_filter_ref(*(a.cpu() for a in args),
+                                                 *KABSCH_ARGS).items()}
+    split = ~_pairs_equal(want, cpu)
+    as_card, as_cpu = _pairs_equal(got, want), _pairs_equal(got, cpu)
+    assert bool((as_card | (split & as_cpu)).all()), (
+        f"pairs {(~as_card).nonzero().flatten().tolist()} differ from the plain version "
+        f"(card / CPU split: {split.nonzero().flatten().tolist()})")
+    for same, ref in ((as_card, want), (~as_card, cpu)):
+        err = (got["transform"] - ref["transform"]).abs().amax((-1, -2))[same]
+        assert not bool((err > KABSCH_T_ATOL).any()), float(err.max())
+    return int((~as_card).sum())
+
+
+@pytest.fixture(scope="module")
+def real_matches(setup):
+    """The greedy filter's inputs as ``_frame_step`` hands them over on the
+    card, over 11 frames of the 160x120 orbit in one window of 11 (frame f
+    is matched against the f before it): the last frame's call (10 pairs)
+    and all 55 pairs pooled."""
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+    from bundlefusion_tpu_torch.ops import filters
+    from bundlefusion_tpu_torch.pipeline import frontend
+
+    seq = make_sequence_wire(11, intr=default_intrinsics(160, 120))
+    eng = _small_engine("cuda", submap_size=11)
+    calls = []
+
+    def capture(*args):
+        calls.append([a.clone() for a in args[:5]])
+        return filters.kabsch_filter(*args)
+
+    frontend.kabsch_filter = capture
+    try:
+        for f in range(11):
+            eng._frame_step(seq["depth"][f], seq["color"][f], f, f)
+    finally:
+        frontend.kabsch_filter = filters.kabsch_filter
+    assert [c[4].shape for c in calls] == [(f, 128) for f in range(1, 11)]
+    return calls[-1], [torch.cat([c[i] for c in calls]) for i in range(5)]
+
+
+@pytest.mark.parametrize("pairs", [10, 64], ids=["per_frame", "global"])
+def test_kabsch_kernel_matches_plain_on_real_matches(real_matches, pairs):
+    from bundlefusion_tpu_torch.ops import filters
+
+    last, pool = real_matches
+    idx = torch.arange(pairs, device=pool[0].device) % pool[0].shape[0]
+    args = last if pairs == 10 else [a[idx].contiguous() for a in pool]
+    before = kernels.launch_counts["kabsch_filter"]
+    got = filters.kabsch_filter(*args, *KABSCH_ARGS)
+    assert kernels.launch_counts["kabsch_filter"] == before + 1 and got["host_reads"] == 0
+    want = filters.kabsch_filter_ref(*args, *KABSCH_ARGS)
+    assert kernels.launch_counts["kabsch_filter"] == before + 1 and want["host_reads"] > 0
+    torch.cuda.synchronize()
+    _filter_outputs_equal(got, want, args)
+    assert int(want["valid_pair"].sum()) >= pairs // 2
+
+
+@pytest.mark.parametrize("case", ["fewer_than_3", "all_invalid", "revert_at_3",
+                                  "tie_for_worst", "fills_max_filtered", "no_pairs"])
+def test_kabsch_kernel_matches_plain_on_edge_cases(setup, case):
+    from bundlefusion_tpu_torch.ops import filters
+    from torch_kabsch_cases import CASES   # tests/ is on the path of every test file
+
+    arrays, check = CASES[case]()
+    args = [torch.from_numpy(np.array(a)).cuda() for a in arrays]
+    before = kernels.launch_counts["kabsch_filter"]
+    got = filters.kabsch_filter(*args, *KABSCH_ARGS)
+    assert kernels.launch_counts["kabsch_filter"] == before + (args[4].shape[0] > 0)
+    want = filters.kabsch_filter_ref(*args, *KABSCH_ARGS)
+    torch.cuda.synchronize()
+    assert _filter_outputs_equal(got, want, args) == 0
+    check({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in got.items()})
+
+
+def test_kabsch_kernel_twice_bitwise_without_a_wait(real_matches):
+    from bundlefusion_tpu_torch.ops import filters
+
+    _, pool = real_matches
+    filters.kabsch_filter(*pool, *KABSCH_ARGS)   # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = filters.kabsch_filter(*pool, *KABSCH_ARGS)
+        b = filters.kabsch_filter(*pool, *KABSCH_ARGS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for k in ("valid_pair", "inlier_mask", "count"):
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(a["transform"].view(torch.int32), b["transform"].view(torch.int32))
