@@ -26,10 +26,10 @@ SOURCES = {
     "tsdf_prepare": "tsdf_prepare.cu",  # image pass: one float4 sample per pixel
     "tsdf_cull": "tsdf_cull.cu",        # frustum cull into a device-side row list
     "tsdf_apply": "tsdf_apply.cu",      # the integrate / de-integrate sweep
-    "kabsch_filter": "kabsch_filter.cu",  # the greedy Kabsch filter, one CTA per pair
+    "kabsch_filter": "kabsch_filter.cu",  # the greedy Kabsch filter, one warp per pair
 }
 MAX_OPS = 64  # ops per call: one bit each in a row's op mask
-KABSCH_MAX_R = 1024  # raw matches per pair: one thread each
+KABSCH_MAX_R = 1024  # raw matches per pair: at most 32 in each lane of its warp
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -246,7 +246,7 @@ def tsdf_apply_wave() -> int:
 def kabsch_filter_launch(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered: int,
                          min_num_matches: int, max_res2: float):
     """Launch ``kabsch_filter.cu``: the greedy Kabsch filter of P image
-    pairs, one CTA each, on the current stream.
+    pairs, one warp each, on the current stream.
 
     ``src_pts`` / ``tgt_pts`` [P, R, 3] and ``pix_src`` / ``pix_tgt``
     [P, R, 2] float32, ``valid`` [P, R] bool (a prefix per pair), R at most

@@ -8,7 +8,8 @@ dimension P and the ``*_pair`` forms are the P = 1 case.
 
 The greedy Kabsch filter is two nested data-dependent loops. On the card
 ``kabsch_filter`` launches ``kernels/kabsch_filter.cu``, which runs each
-pair's loops in one CTA and reads nothing back. Its plain version,
+pair's loops in one warp, with every sum over the matches and a fit's 4x4
+algebra spread over its lanes, and reads nothing back. Its plain version,
 ``kabsch_filter_ref``, is what runs on the CPU: as JAX does under ``vmap``,
 it runs every pair until the last one has finished, with one loop over
 candidate positions shared by all pairs, per-pair ``alive`` masks, and

@@ -14,8 +14,9 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    11 ops / 6 images), show that one call of the op waits for nothing, and
    time everything in turns; then the greedy Kabsch filter's kernel against
    its plain version (``kabsch_filter_ref``) on the real matches of the first
-   window's 11 frames: the last frame's call (10 pairs of 128 raw matches)
-   and the window's 55 pairs as a global match of 64: validity, counts and
+   window's 11 frames: the last frame's call (10 pairs of 128 raw matches),
+   the window's 55 pairs as a global match of 64 and, cycled the same way,
+   of 640 (the widest global match the repository drives): validity, counts and
    masks equal (on a pair that the plain version itself decides differently
    on the card and on the CPU, float32 rounding decides it, and the kernel
    must give one of its two answers), transforms within 1e-4, two calls
@@ -154,7 +155,11 @@ the counts are set to 0 just before each. For ``kabsch_filter``, whose main
 path is the per-frame path (the fusion half runs no match), ``launches`` is
 the frontend phase's first run, as ``launches_frontend``; its ``ms`` /
 ``plain_ms`` (CUDA events, host enqueue included) and ``kernel_ms`` (the
-profiler) are at 10 pairs, ``_64`` at 64; ``bound_ms`` counts the inputs
+profiler) are at 10 pairs, ``_64`` / ``_640`` at 64 / 640; ``longest_fits``
+counts the fits of the pair with the most, ``us_per_fit`` is ``kernel_ms``
+over them (the pairs run side by side, so the longest sets the time), and
+``ptxas`` has each compiled kernel function's registers, stack and spills
+as ``nvcc -Xptxas -v`` reports them; ``bound_ms`` counts the inputs
 and outputs once and the fits these inputs need (counted by the plain
 version on the CPU, pair by pair) at ``FLOP_PER_FIT`` and
 ``FLOP_PER_MASKED_MATCH``: the work is a serial chain of dependent fits per
@@ -224,7 +229,7 @@ REPLACES = {
     "kabsch_filter": "bundlefusion_tpu/ops/filters.py:80",
 }
 TSDF_KERNELS = ("tsdf_prepare", "tsdf_cull", "tsdf_apply")  # the fused TSDF op's three
-KABSCH_PAIRS = (10, 64)     # the greedy filter: one frame's pairs, a global match's
+KABSCH_PAIRS = (10, 64, 640)  # the greedy filter: one frame's pairs, two global matches
 KABSCH_T_ATOL = 1e-4        # kernel vs plain transforms (tests/test_torch_filters.py)
 # operations of one greedy-filter fit, counted from the plain version's
 # arithmetic: the 4x4 algebra (N, 7 squarings with their norms, q, R, t, the
@@ -288,34 +293,65 @@ def _kernel_device_ms(fn, kernel, before=None):
     """Mean device time of ``kernel`` over REPS calls of ``fn`` (each after
     ``before()``, if given), from the profiler's trace of the card: the
     CUDA events around one call also time the host's enqueue, which is
-    most of a call this short. None when the trace holds no such kernel."""
+    most of a call this short. A trace that misses the kernel (it happens
+    now and then) is taken again, up to 3 times; None when none holds it."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            if before is not None:
-                before()
-            fn()
-        _sync()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    if not hits:
-        print(f"chip_smoke: no {kernel} in the profiler trace", file=sys.stderr)
-        return None
-    return sum(e.self_device_time_total for e in hits) / 1e3 / sum(e.count for e in hits)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                if before is not None:
+                    before()
+                fn()
+            _sync()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        if hits:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / sum(e.count for e in hits)
+    print(f"chip_smoke: no {kernel} in the profiler trace", file=sys.stderr)
+    return None
+
+
+def _ptxas(log: str) -> list:
+    """Each kernel function's resources from ``nvcc -Xptxas -v`` output:
+    [{"function", "registers", "stack_bytes", "spill_stores", "spill_loads"}]
+    with the function's name demangled as far as ``name<K>``."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            z = re.match(r"_Z(\d+)", fn)
+            name = fn[z.end():z.end() + int(z.group(1))] if z else fn
+            k = re.match(r"ILi(\d+)E", fn[z.end() + int(z.group(1)):]) if z else None
+            cur = {"function": f"{name}<{k.group(1)}>" if k else name}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def phase_build():
+    """Builds and loads every kernel; returns (seconds, {name: ptxas list})."""
     from bundlefusion_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.build_all()
     for name in kernels.SOURCES:
         kernels.load(name)
-    for name, log in kernels.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build {name}] {line.strip()}")
-    return time.perf_counter() - t0
+    ptxas = {name: _ptxas(log) for name, log in kernels.build_logs.items()}
+    for name, fns in ptxas.items():
+        for f in fns:
+            print(f"[build {name}] {json.dumps(f)}")
+    return time.perf_counter() - t0, ptxas
 
 
 def _restore(dst, src):
@@ -595,8 +631,8 @@ def _kabsch_work(args):
 
 def phase_kabsch(dev, seq, app, bundling=None, sift_cfg=None):
     """The greedy Kabsch filter's kernel against its plain version on the
-    card, on real matches of the first window at 10 pairs (one frame's call)
-    and 64 (the pool, as a global match at G = 64 has it): every pair's
+    card, on real matches of the first window at 10 pairs (one frame's call),
+    64 and 640 (the pool cycled, as a global match at G = 64 / 640 has it): every pair's
     validity, count and mask equal the plain version's on the card (or, on
     a pair that the plain version decides differently on the card and on
     the CPU, its CPU answer) and transforms within KABSCH_T_ATOL,
@@ -660,20 +696,24 @@ def phase_kabsch(dev, seq, app, bundling=None, sift_cfg=None):
                 times[fn].append(_event_ms(fn))
         R = args[4].shape[1]
         fits = sum(work[i][0] for i in rows)
+        longest = max(work[i][0] for i in rows)
         masked = sum(work[i][1] for i in rows)
+        kernel_ms = _kernel_device_ms(run_kernel, "kabsch_filter_kernel")
         out[str(pairs)] = {
             "pairs": pairs,
             "raw_matches": int(args[4].sum()),
             "valid_pairs": int(want["valid_pair"].sum()),
             "inliers": int(want["count"].sum()),
             "fits": fits,
+            "longest_fits": longest,
             "mismatching_pairs": int((~as_card).sum()),   # against the plain on the card
             "plain_card_cpu_split_pairs": int(split.sum()),
             "max_abs_err": t_err,
             "ms": statistics.median(times[run_kernel]),
             "plain_ms": statistics.median(times[run_plain]),
             "plain_host_reads": want["host_reads"],
-            "kernel_ms": _kernel_device_ms(run_kernel, "kabsch_filter_kernel"),
+            "kernel_ms": kernel_ms,
+            "us_per_fit": kernel_ms * 1e3 / longest if kernel_ms and longest else None,
             # inputs once (points, pixels, valid), outputs once (mask,
             # count, transform, valid_pair); the fits these inputs need
             "bound": _bound(pairs * R * (4 * 10 + 1 + 1) + pairs * (8 + 64 + 1),
@@ -2466,7 +2506,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gpu = common.gpu_line()
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     t0 = time.perf_counter()
     seq = make_sequence_wire(N_FRAMES, intr=default_intrinsics(640, 480), device=dev)
     seq_s = time.perf_counter() - t0
@@ -2537,22 +2577,21 @@ def main() -> int:
         return e
 
     def kabsch_entry():
-        k10, k64 = (kab[str(n)] for n in KABSCH_PAIRS)
+        ks = [kab[str(n)] for n in KABSCH_PAIRS]
         e = {
             # its main path is the per-frame path: phase_frontend's kernel run
             **launches("kabsch_filter", fe["launches"]["kabsch_filter"]),
-            "max_abs_err": max(k10["max_abs_err"], k64["max_abs_err"]),
-            "mismatching_pairs": k10["mismatching_pairs"] + k64["mismatching_pairs"],
+            "max_abs_err": max(k["max_abs_err"] for k in ks),
+            "mismatching_pairs": sum(k["mismatching_pairs"] for k in ks),
             "library_ms": None,
+            "plain_card_cpu_split_pairs": sum(k["plain_card_cpu_split_pairs"] for k in ks),
         }
-        e["plain_card_cpu_split_pairs"] = (k10["plain_card_cpu_split_pairs"]
-                                           + k64["plain_card_cpu_split_pairs"])
-        for key in ("ms", "plain_ms", "kernel_ms", "plain_host_reads", "pairs", "valid_pairs",
-                    "fits"):
-            e[key] = k10[key]
-            e[key + "_64"] = k64[key]
-        e["bound_ms"], e["bound_by"] = k10["bound"]
-        e["bound_ms_64"], e["bound_by_64"] = k64["bound"]
+        for n, k in zip(KABSCH_PAIRS, ks):
+            sfx = "" if n == KABSCH_PAIRS[0] else f"_{n}"
+            for key in ("ms", "plain_ms", "kernel_ms", "plain_host_reads", "pairs",
+                        "valid_pairs", "fits", "longest_fits", "us_per_fit"):
+                e[key + sfx] = k[key]
+            e["bound_ms" + sfx], e["bound_by" + sfx] = k["bound"]
         return e
 
     big = cap["large_table"]["checks"]
@@ -2567,6 +2606,8 @@ def main() -> int:
                          for k, c in big.items()}},
         kabsch_entry(),
     ]}
+    for e in kernels_line["kernels"]:
+        e["ptxas"] = ptxas.get(e["name"], [])
     sl["profile"] = prof
     sl["build_s"] = build_s
     sl["sequence_render_s"] = seq_s

@@ -23,13 +23,15 @@ exact and past both working-set caps.
 
 The greedy Kabsch filter's kernel is held against its plain version on
 the card: on real matches of the synthetic orbit at the per-frame shape (10
-pairs of 128 raw matches) and at a global one (64 pairs), and on the edge
-cases of ``tests/torch_kabsch_cases.py``; masks, counts and validity equal,
+pairs of 128 raw matches) and at global ones (64 and 640 pairs), and on the
+edge cases of ``tests/torch_kabsch_cases.py`` (R = 33, R = 1024 and 130 mixed
+pairs among them); masks, counts and validity equal,
 transforms within 1e-4 (the plain version's tiny products go through cuBLAS,
 the kernel rounds each product and sum in order), two calls bit for bit equal
 and none waiting for the device. A pair that the plain version itself
 decides one way on the card and another on the CPU (float32 rounding decides
-it) must get one of its two answers.
+it) must get one of its two answers. Packed several to a CTA (650 pairs), each
+pair's results are the bits it gets in a batch of 130.
 
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
@@ -620,7 +622,7 @@ def real_matches(setup):
     return calls[-1], [torch.cat([c[i] for c in calls]) for i in range(5)]
 
 
-@pytest.mark.parametrize("pairs", [10, 64], ids=["per_frame", "global"])
+@pytest.mark.parametrize("pairs", [10, 64, 640], ids=["per_frame", "global", "global_640"])
 def test_kabsch_kernel_matches_plain_on_real_matches(real_matches, pairs):
     from bundlefusion_tpu_torch.ops import filters
 
@@ -638,7 +640,8 @@ def test_kabsch_kernel_matches_plain_on_real_matches(real_matches, pairs):
 
 
 @pytest.mark.parametrize("case", ["fewer_than_3", "all_invalid", "revert_at_3",
-                                  "tie_for_worst", "fills_max_filtered", "no_pairs"])
+                                  "tie_for_worst", "fills_max_filtered", "no_pairs",
+                                  "r33", "r1024", "mixed_130"])
 def test_kabsch_kernel_matches_plain_on_edge_cases(setup, case):
     from bundlefusion_tpu_torch.ops import filters
     from torch_kabsch_cases import CASES   # tests/ is on the path of every test file
@@ -670,3 +673,23 @@ def test_kabsch_kernel_twice_bitwise_without_a_wait(real_matches):
     for k in ("valid_pair", "inlier_mask", "count"):
         assert torch.equal(a[k], b[k]), k
     assert torch.equal(a["transform"].view(torch.int32), b["transform"].view(torch.int32))
+
+
+def test_kabsch_kernel_pairs_do_not_depend_on_their_neighbours(setup):
+    """The 130 mixed pairs tiled 5 times (650 pairs: more than the card has
+    SMs, so several share a CTA, the last CTA part-filled): every tile's
+    results are the bits of the 130-pair call."""
+    from bundlefusion_tpu_torch.ops import filters
+    from torch_kabsch_cases import CASES   # tests/ is on the path of every test file
+
+    args = [torch.from_numpy(np.array(a)).cuda() for a in CASES["mixed_130"]()[0]]
+    one = filters.kabsch_filter(*args, *KABSCH_ARGS)
+    tiled = filters.kabsch_filter(*(a.repeat(5, *[1] * (a.dim() - 1)) for a in args),
+                                  *KABSCH_ARGS)
+    torch.cuda.synchronize()
+    for k in ("valid_pair", "inlier_mask", "count", "transform"):
+        want = one[k].repeat(5, *[1] * (one[k].dim() - 1))
+        if k == "transform":
+            assert torch.equal(tiled[k].view(torch.int32), want.view(torch.int32)), k
+        else:
+            assert torch.equal(tiled[k], want), k

@@ -8,7 +8,9 @@ counts and ``valid_pair`` equal, transforms within 1e-4 (the tolerance of
 ``tests/test_torch_filters.py``). The cases are the ones where the two loops
 take their rare branches: fewer than 3 valid matches, no valid match, a
 strip that reverts at 3, a tie for the worst residual, a pair that fills
-``max_filtered``, and no pair at all.
+``max_filtered``, and no pair at all; and at the shapes the kernel's layout
+branches on: R = 33 (a part-filled lane), R = 1024 with a valid prefix of 400
+(32 matches a lane), and a batch of 130 mixed pairs.
 """
 
 import os
@@ -55,7 +57,8 @@ def test_edge_case_matches_jax(case):
 def test_edge_cases_in_one_batch_match_jax():
     """All pairs in one call: each pair as JAX has it, whatever step the
     others stop at."""
-    parts = [CASES[c]()[0] for c in CASES if c != "no_pairs"]
+    parts = [CASES[c]()[0] for c in ("fewer_than_3", "all_invalid", "revert_at_3",
+                                     "tie_for_worst", "fills_max_filtered")]
     arrays = tuple(np.concatenate([p[i] for p in parts]) for i in range(5))
     got = tf.kabsch_filter_ref(*(t(a) for a in arrays), MAX_FILTERED, MIN_MATCHES, MAX_RES2)
     assert_matches(got, _jax(arrays))

@@ -138,6 +138,101 @@ def case_fills_max_filtered():
     return arrays, check
 
 
+def _outlier(rng):
+    return rng.uniform([-0.8, -0.6, 1.0], [0.8, 0.6, 3.0], size=3)
+
+
+def case_r33():
+    # R = 33: the last match sits alone in the second slot of lane 0. Eight
+    # outliers among the first 32 matches leave the 25th inlier at index 32.
+    rng = np.random.default_rng(14)
+    src, tgt = _rigid_points(rng, 33)
+    bad = [4, 8, 12, 16, 20, 24, 28, 30]
+    for i in bad:
+        tgt[i] = _outlier(rng)
+    arrays = _batch(_pair(src, tgt, rng, r_cap=33))
+    want = [i for i in range(33) if i not in bad]
+
+    def check(got):
+        assert bool(got["valid_pair"][0]) and int(got["count"][0]) == MAX_FILTERED
+        assert got["inlier_mask"][0].nonzero().flatten().tolist() == want
+    return arrays, check
+
+
+def case_r1024():
+    # R = 1024 (32 matches a lane) with a valid prefix of 400: 25 rigid
+    # matches spread over it, the others outliers (added, fitted, stripped)
+    # or within 5 px of an earlier inlier (skipped without a fit), so the
+    # scan reaches the last inlier at index 399.
+    rng = np.random.default_rng(15)
+    n, r_cap = 400, 1024
+    keep = [0, 1, 2] + np.linspace(20, n - 1, MAX_FILTERED - 3).round().astype(int).tolist()
+    src, tgt = _rigid_points(rng, n)
+    src, tgt, ps, pt, valid = _pair(src, tgt, rng, r_cap=r_cap)
+    for i in range(n):
+        if i in keep:
+            continue
+        earlier = [k for k in keep if k < i]
+        if i % 2 and earlier:
+            ps[i] = ps[earlier[rng.integers(len(earlier))]] + rng.uniform(-3.0, 3.0, size=2)
+        tgt[i] = _outlier(rng)
+    arrays = _batch((src, tgt, ps, pt, valid))
+
+    def check(got):
+        assert bool(got["valid_pair"][0]) and int(got["count"][0]) == MAX_FILTERED
+        assert got["inlier_mask"][0].nonzero().flatten().tolist() == keep
+    return arrays, check
+
+
+def case_mixed_130():
+    # 130 pairs of five kinds in turn: rigid (4-60 matches), rigid with
+    # outliers after the first three, fewer than 3 valid matches, four
+    # matches with no rigid motion (revert at 3), and rigid with pixel
+    # duplicates of earlier matches
+    rng = np.random.default_rng(16)
+    pairs, want_valid, want_count = [], [], []
+    for p in range(130):
+        kind = p % 5
+        if kind == 0:
+            n = int(rng.integers(4, 61))
+            pairs.append(_pair(*_rigid_points(rng, n), rng))
+            want_valid.append(True)
+            want_count.append(min(n, MAX_FILTERED))
+        elif kind == 1:
+            n = int(rng.integers(10, 61))
+            src, tgt = _rigid_points(rng, n)
+            for i in rng.choice(np.arange(3, n), size=n // 5, replace=False):
+                tgt[i] = _outlier(rng)
+            pairs.append(_pair(src, tgt, rng))
+            want_valid.append(True)
+            want_count.append(None)
+        elif kind == 2:
+            pairs.append(_pair(*_rigid_points(rng, p % 3), rng))
+            want_valid.append(False)
+            want_count.append(0)
+        elif kind == 3:
+            pairs.append(_pair(rng.uniform([-0.8, -0.6, 1.0], [0.8, 0.6, 3.0], size=(4, 3)),
+                               rng.uniform([-0.8, -0.6, 1.0], [0.8, 0.6, 3.0], size=(4, 3)),
+                               rng))
+            want_valid.append(False)
+            want_count.append(0)
+        else:
+            src, tgt, ps, pt, valid = _pair(*_rigid_points(rng, 40), rng)
+            for i in range(5, 40, 3):
+                ps[i] = ps[i - 5] + 2.0
+            pairs.append((src, tgt, ps, pt, valid))
+            want_valid.append(True)
+            want_count.append(None)
+    arrays = _batch(*pairs)
+
+    def check(got):
+        assert got["valid_pair"].tolist() == want_valid
+        for p, c in enumerate(want_count):
+            if c is not None:
+                assert int(got["count"][p]) == c, p
+    return arrays, check
+
+
 def case_no_pairs():
     def check(got):
         assert got["inlier_mask"].shape == (0, R_RAW) and got["transform"].shape == (0, 4, 4)
@@ -152,4 +247,7 @@ CASES = {
     "tie_for_worst": case_tie_for_worst,
     "fills_max_filtered": case_fills_max_filtered,
     "no_pairs": case_no_pairs,
+    "r33": case_r33,
+    "r1024": case_r1024,
+    "mixed_130": case_mixed_130,
 }
