@@ -5,9 +5,12 @@ layout (``geometry``, ``io``, ``ops``, ``tsdf``, ``solver``, ``pipeline``,
 ``parallel``, ``utils``) and function names so each counterpart is easy to find. Plain
 tensor code is PyTorch; the one Pallas kernel of the JAX package (the fused
 TSDF integrate / de-integrate sweep) is three hand-written CUDA kernels for
-Hopper under ``kernels/``, built with ``nvcc`` on first use, and a fourth
-runs the greedy Kabsch filter of the match cascade on the card, as the
-reference's jitted loops do.
+Hopper under ``kernels/``, built with ``nvcc`` on first use; a fourth and
+a fifth run the greedy Kabsch filter and the surface-area filter of the
+match cascade on the card, as the reference's jitted code does. On the card
+the per-frame step is captured once per window slot as a CUDA graph and
+replayed each frame, the counterpart of the reference's compiled
+``frame_step``.
 
 Ported so far: the engine's main path on one device (``pipeline.online``:
 SIFT frontend, match filters, correspondences, bundle adjustment and the

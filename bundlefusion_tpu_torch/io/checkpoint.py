@@ -27,6 +27,8 @@ import json
 import numpy as np
 import torch
 
+from bundlefusion_tpu_torch.utils import copy_into
+
 FORMAT_VERSION = 1
 _TREES = ("local", "glob", "store", "table")
 
@@ -170,7 +172,6 @@ def load_engine(path: str, mesh=None, device=None):
     from bundlefusion_tpu_torch.config import AppConfig, BundlingConfig
     from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
     from bundlefusion_tpu_torch.ops.sift import SiftConfig
-    from bundlefusion_tpu_torch.pipeline.frames import FrameStore
     from bundlefusion_tpu_torch.pipeline.online import (
         BundleFusion,
         global_state_from_numpy,
@@ -195,16 +196,16 @@ def load_engine(path: str, mesh=None, device=None):
              if getattr(eng, name) is not None}
     eng.glob = global_state_from_numpy(_nested(eng.glob, trees["glob"]), dev)
     if eng._is_root:
-        eng.local = local_state_from_numpy(_nested(eng.local, trees["local"]), dev)
+        # the window, the frame archive and the anchor pose are copied into
+        # the engine's own storages: its frame graphs read them by address
+        copy_into(eng.local, local_state_from_numpy(_nested(eng.local, trees["local"]), dev))
         store = trees["store"]
-        eng.store = FrameStore(
-            depth_mm=torch.from_numpy(store["depth_mm"].astype(np.uint16).view(np.int16).copy())
-            .to(dev).view(torch.uint16),
-            color=torch.from_numpy(store["color"].astype(np.uint8)).to(dev),
-        )
+        eng.store.depth_mm.view(torch.int16).copy_(
+            torch.from_numpy(store["depth_mm"].astype(np.uint16).view(np.int16)))
+        eng.store.color.copy_(torch.from_numpy(store["color"].astype(np.uint8)))
         eng.table = table_from_numpy(trees["table"], dev)
 
-    eng.submap_base = torch.as_tensor(data["submap_base"], dtype=torch.float32, device=dev)
+    eng.submap_base.copy_(torch.as_tensor(data["submap_base"], dtype=torch.float32))
     eng.keyframe_valid = data["keyframe_valid"].copy()
     eng.sift_world = [t.copy() for t in data["sift_world"]]
     eng.complete_traj = [t.copy() for t in data["complete_traj"]]

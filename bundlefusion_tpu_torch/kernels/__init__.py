@@ -27,9 +27,11 @@ SOURCES = {
     "tsdf_cull": "tsdf_cull.cu",        # frustum cull into a device-side row list
     "tsdf_apply": "tsdf_apply.cu",      # the integrate / de-integrate sweep
     "kabsch_filter": "kabsch_filter.cu",  # the greedy Kabsch filter, one warp per pair
+    "surface_area": "surface_area.cu",    # the surface-area filter, one warp per pair
 }
 MAX_OPS = 64  # ops per call: one bit each in a row's op mask
 KABSCH_MAX_R = 1024  # raw matches per pair: at most 32 in each lane of its warp
+SURFACE_AREA_MAX_R = 1024  # matches per pair of the surface-area kernel
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -114,6 +116,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "kabsch_filter":
         lib.bf_kabsch_filter.restype = I
         lib.bf_kabsch_filter.argtypes = [P] * 9 + [I] * 4 + [F] + [P]
+    elif name == "surface_area":
+        lib.bf_surface_area.restype = I
+        lib.bf_surface_area.argtypes = [P] * 6 + [I] * 2 + [F] + [P]
 
 
 def _check_cuda(t: torch.Tensor, dtype, what: str, shape=None) -> None:
@@ -278,6 +283,37 @@ def kabsch_filter_launch(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered
         float(max_res2), _stream(valid)), "kabsch_filter")
     launch_counts["kabsch_filter"] += 1
     return inlier, count, transform, valid_pair
+
+
+def surface_area_launch(src_pts, tgt_pts, inlier_mask, area_thresh: float):
+    """Launch ``surface_area.cu``: the surface-area filter of P image pairs,
+    one warp each, on the current stream.
+
+    ``src_pts`` / ``tgt_pts`` [P, R, 3] float32 and ``inlier_mask`` [P, R]
+    bool, R at most ``SURFACE_AREA_MAX_R``. Returns ``keep`` [P] bool and
+    the two images' areas ``a0`` / ``a1`` [P] float32, on the card. Nothing
+    is read back; P = 0 launches nothing."""
+    _check_cuda(inlier_mask, torch.bool, "inlier_mask")
+    if inlier_mask.dim() != 2:
+        raise ValueError(f"inlier_mask: need [P, R], got {tuple(inlier_mask.shape)}")
+    P, R = inlier_mask.shape
+    for t, what in ((src_pts, "src_pts"), (tgt_pts, "tgt_pts")):
+        _check_cuda(t, torch.float32, what, (P, R, 3))
+    if R > SURFACE_AREA_MAX_R:
+        raise ValueError(f"surface_area: at most {SURFACE_AREA_MAX_R} matches per pair, got {R}")
+    dev = inlier_mask.device
+    keep = torch.empty((P,), dtype=torch.bool, device=dev)
+    a0 = torch.empty((P,), dtype=torch.float32, device=dev)
+    a1 = torch.empty((P,), dtype=torch.float32, device=dev)
+    if P == 0:
+        return keep, a0, a1
+    lib = load("surface_area")
+    _raise_on(lib.bf_surface_area(
+        src_pts.data_ptr(), tgt_pts.data_ptr(), inlier_mask.data_ptr(), keep.data_ptr(),
+        a0.data_ptr(), a1.data_ptr(), int(P), int(R), float(area_thresh),
+        _stream(inlier_mask)), "surface_area")
+    launch_counts["surface_area"] += 1
+    return keep, a0, a1
 
 
 # the culled path's three launchers, at the interfaces of

@@ -6,7 +6,11 @@ Port of ``bundlefusion_tpu/ops/filters.py`` (the reference's
 ``vmap``-ed over image pairs; here every stage takes a leading pair
 dimension P and the ``*_pair`` forms are the P = 1 case.
 
-The greedy Kabsch filter is two nested data-dependent loops. On the card
+The greedy Kabsch filter and the surface-area filter are hand kernels on
+the card (``kernels/kabsch_filter.cu``, ``kernels/surface_area.cu``); the
+wrappers ``kabsch_filter`` / ``surface_area_filter`` run their plain
+versions (``*_ref``) on CPU tensors. The greedy Kabsch filter is two nested
+data-dependent loops. On the card
 ``kabsch_filter`` launches ``kernels/kabsch_filter.cu``, which runs each
 pair's loops in one warp, with every sum over the matches and a fit's 4x4
 algebra spread over its lanes, and reads nothing back. Its plain version,
@@ -266,8 +270,32 @@ def _surface_area_one(pts, w):
 
 def surface_area_filter(src_pts, tgt_pts, inlier_mask, area_thresh: float = 0.032):
     """Reject a pair if the matched keys are near-degenerate (tiny spanned
-    area) in BOTH images. [P, R, ...] inputs (or one pair's [R, ...]);
-    returns (keep_bool, area_src, area_tgt)."""
+    area) in BOTH images: the arguments and results of
+    :func:`surface_area_filter_ref`.
+
+    On CUDA tensors it launches ``kernels/surface_area.cu`` once (none for
+    P = 0) on the current stream and reads nothing back; it raises if the
+    kernel cannot be built or launched. On CPU tensors it runs
+    :func:`surface_area_filter_ref`.
+    """
+    if not inlier_mask.is_cuda:
+        return surface_area_filter_ref(src_pts, tgt_pts, inlier_mask, area_thresh)
+    from bundlefusion_tpu_torch.kernels import surface_area_launch
+
+    if inlier_mask.dim() == 1:   # one pair
+        return tuple(x[0] for x in surface_area_filter(src_pts[None], tgt_pts[None],
+                                                       inlier_mask[None], area_thresh))
+    return surface_area_launch(*(x.contiguous() for x in (src_pts, tgt_pts, inlier_mask)),
+                               area_thresh)
+
+
+def surface_area_filter_ref(src_pts, tgt_pts, inlier_mask, area_thresh: float = 0.032):
+    """Reject a pair if the matched keys are near-degenerate (tiny spanned
+    area) in BOTH images, in torch ops: the plain version of
+    ``kernels/surface_area.cu``. [P, R, ...] inputs (or one pair's
+    [R, ...]); returns (keep_bool, area_src, area_tgt). On a CUDA tensor
+    each of its ``torch.linalg.eigh`` calls makes the host wait for the
+    card."""
     w = inlier_mask.to(torch.float32)
     a0 = _surface_area_one(src_pts, w)
     a1 = _surface_area_one(tgt_pts, w)

@@ -12,6 +12,8 @@ around at the image edge exactly as ``jnp.roll`` does.
 
 from __future__ import annotations
 
+from functools import cache
+
 import torch
 import torch.nn.functional as F
 
@@ -73,10 +75,16 @@ def resample_bilinear(img: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor
     )
 
 
+@cache
+def _luma(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # made once per device: a host constant would be a copy to the card per
+    # call, and a captured frame graph reads it by address
+    return torch.tensor([0.299, 0.587, 0.114], dtype=dtype, device=device)
+
+
 def rgb_to_intensity(color: torch.Tensor) -> torch.Tensor:
     """[H, W, 3] -> [H, W] luminance (0.299 / 0.587 / 0.114)."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=color.dtype, device=color.device)
-    return color @ w
+    return color @ _luma(color.dtype, color.device)
 
 
 def erode_depth(depth: torch.Tensor, radius: int = 2, dist_thresh: float = 0.1,

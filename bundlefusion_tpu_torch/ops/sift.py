@@ -13,14 +13,16 @@ unit; here a blur is two ``conv2d`` calls on an edge-padded image and the
 26-neighbour extremum test is a few running maxima over the whole DoG
 stack, so an octave is tens of calls instead of hundreds. Histograms are
 one-hot contractions (not scatter-adds), which makes the descriptors
-bitwise repeatable on the card.
+bitwise repeatable on the card. The constant tensors (blur taps, sample
+grid, bins, bank layout) are made once per configuration and device and
+never evicted: a captured frame graph reads them by address.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import cache
 from typing import NamedTuple
 
 import numpy as np
@@ -64,7 +66,7 @@ def _gauss_kernel1d(sigma: float) -> np.ndarray:
     return k / k.sum()
 
 
-@lru_cache(maxsize=16)
+@cache
 def _blur_taps(cfg: SiftConfig, device: torch.device):
     """The pyramid's blur kernels as tensors on ``device``, [octave][level]:
     uploaded once per configuration, not once per frame."""
@@ -176,7 +178,7 @@ _GRID = np.stack(
 ).reshape(-1, 2).astype(np.float32)
 
 
-@lru_cache(maxsize=4)
+@cache
 def _grid(device: torch.device):
     g = torch.as_tensor(_GRID, device=device)
     return g[None, :, 0], g[None, :, 1]
@@ -207,11 +209,18 @@ def _bilinear_flat(flat, base, W, H, x, y):
     return a * (1 - fx) * (1 - fy) + b * fx * (1 - fy) + c * (1 - fx) * fy + d * fx * fy
 
 
+def _onehot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """[..., n] rows of 0 / 1 with the 1 at ``idx`` (in [0, n)): what
+    ``F.one_hot`` gives, by a comparison, which never reads a value back
+    (``F.one_hot`` checks its range on the host off the card)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _histogram(weights: torch.Tensor, bins: torch.Tensor, n_bins: int) -> torch.Tensor:
     """[K, s] weights into [K, n_bins] by a one-hot contraction: the same
     sums as a scatter-add, in an order that does not change from run to
     run (float atomics on the card do)."""
-    onehot = F.one_hot(bins, n_bins).to(weights.dtype)        # [K, s, n_bins]
+    onehot = _onehot(bins, n_bins, weights.dtype)              # [K, s, n_bins]
     return (weights[:, None, :] @ onehot)[:, 0]
 
 
@@ -248,7 +257,7 @@ def _orientations(gm_flat, go_flat, base, W, H, x, y, sigma_local):
     return (b.to(torch.float32) + 0.5 + delta) * (2 * math.pi / 36.0)
 
 
-@lru_cache(maxsize=4)
+@cache
 def _spatial_bins(device: torch.device) -> torch.Tensor:
     """The descriptor's bilinear spatial binning, which no key changes:
     [16, 256] weights of each of the 256 grid samples in each of the 4x4
@@ -295,14 +304,14 @@ def _descriptors(gm_flat, go_flat, base, W, H, x, y, sigma_local, ang):
     fo = (bo - bo0)[..., None]
     io = bo0.to(torch.int64)
     # [K, 256, 8]: each sample's weight split between its two orientation bins
-    split = F.one_hot(io % 8, 8) * (1 - fo) + F.one_hot((io + 1) % 8, 8) * fo
+    split = _onehot(io % 8, 8, fo.dtype) * (1 - fo) + _onehot((io + 1) % 8, 8, fo.dtype) * fo
     desc = ((_spatial_bins(x.device) * w[:, None, :]) @ split).reshape(-1, 128)
     d = desc / torch.clamp(torch.linalg.norm(desc, dim=1, keepdim=True), min=1e-12)
     d = torch.clamp(d, max=0.2)
     return d / torch.clamp(torch.linalg.norm(d, dim=1, keepdim=True), min=1e-12)
 
 
-@lru_cache(maxsize=16)
+@cache
 def _bank_layout(shapes: tuple, S: int, device: torch.device):
     """Where each (octave, level 1..S) image starts in the flat gradient
     bank: (base [O * (S+1)] flat offsets, W [O], H [O]) on ``device``."""

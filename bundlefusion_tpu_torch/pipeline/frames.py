@@ -146,8 +146,15 @@ def load_frames(store: FrameStore, fids: torch.Tensor):
     return d_mm, store.color[fids]
 
 
-def put_frame(store: FrameStore, slot: int, d_mm: torch.Tensor, c_u8: torch.Tensor) -> None:
-    """Write one encoded frame into ``slot`` (in place)."""
+def put_frame(store: FrameStore, slot, d_mm: torch.Tensor, c_u8: torch.Tensor) -> None:
+    """Write one encoded frame into ``slot`` (in place): a host int, or an
+    int64 index tensor of one element on the store's device (read on the
+    device, so a captured frame graph can take a new slot at each replay)."""
+    if isinstance(slot, torch.Tensor):
+        idx = slot.reshape(1)
+        store.depth_mm.view(torch.int16).index_copy_(0, idx, d_mm.view(torch.int16)[None])
+        store.color.index_copy_(0, idx, c_u8[None])
+        return
     store.depth_mm.view(torch.int16)[slot] = d_mm.view(torch.int16)
     store.color[slot] = c_u8
 

@@ -193,8 +193,11 @@ def chained_sift_transform(mf, prev_world_transforms):
     P = pv.shape[0]
     score = torch.where(pv, torch.arange(P, device=pv.device), -1)
     best = torch.argmax(score)
-    found = score[best] >= 0
-    T = prev_world_transforms[best] @ mf["transforms"][best]
+    found = score.max() >= 0
+    # by index_select: indexing with a 0-d tensor reads it back to the host
+    pick = best.reshape(1)
+    T = (prev_world_transforms.index_select(0, pick)[0]
+         @ mf["transforms"].index_select(0, pick)[0])
     eye = torch.eye(4, dtype=T.dtype, device=T.device)
     return torch.where(found, T, eye), found, best
 

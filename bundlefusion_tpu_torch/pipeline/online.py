@@ -46,9 +46,15 @@ Port of ``bundlefusion_tpu/pipeline/online.py``:
 
 The JAX engine fuses each phase into one jitted program, donates its state
 and retires a boundary's results one submap late to hide TPU dispatch
-latency. Here every step runs eagerly on the engine's device, state is
-updated in place, and a boundary's pack is read back at the end of the frame
-that dispatched it. What the host scheduler ends up with is the same.
+latency. Here the per-frame phase, ``_frame_step``, is the counterpart of
+its compiled ``frame_step``: on the card it is captured once per window slot
+as a CUDA graph (``_build_programs``, run by ``warmup`` or on a slot's
+first frame) and each frame replays its slot's graph, which reads and writes
+the window, the frame archive and the window's anchor pose in place, at the
+addresses it was captured with, and waits for nothing. Every other step runs
+eagerly on the engine's device, state is updated in place, and a boundary's
+pack is read back at the end of the frame that dispatched it. What the host
+scheduler ends up with is the same.
 """
 
 from __future__ import annotations
@@ -133,7 +139,7 @@ from bundlefusion_tpu_torch.tsdf.table import (
     create_table,
     garbage_collect,
 )
-from bundlefusion_tpu_torch.utils import host_reads, owned_tensor, read_host
+from bundlefusion_tpu_torch.utils import copy_into, host_reads, owned_tensor, read_host
 from bundlefusion_tpu_torch.utils.timing import TimingLog, stage
 
 REINT_ROWS = 5  # max re-integration rows per frame (2 ops each, budget 10)
@@ -246,8 +252,21 @@ def _checksum(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _cloned(state):
+    """A copy of a (nested) dataclass of tensors, in storages of its own."""
+    return type(state)(**{
+        f.name: (v.clone() if isinstance(v, torch.Tensor) else _cloned(v))
+        for f in dataclasses.fields(state) for v in (getattr(state, f.name),)})
+
+
 class BundleFusion:
     """The engine. Feed RGB-D frames; read back poses / renders / mesh."""
+
+    # Private switch: run ``_frame_step`` eagerly on the card instead of
+    # replaying its captured graphs. Only for comparing the two, and for the
+    # greedy filter's plain version, which reads the card and cannot be
+    # captured.
+    _eager_frame_step = False
 
     def __init__(
         self,
@@ -389,6 +408,12 @@ class BundleFusion:
         # the current submap's anchor pose; stays on the device
         self.submap_base = torch.eye(4, dtype=torch.float32, device=self.device)
         self.timing = TimingLog()
+        # the per-frame program: window slot -> (CUDA graph, the kernel
+        # launches it replays, the state addresses it was captured with),
+        # its static buffers, and whether a capture is running
+        self._graphs: dict = {}
+        self._static: Optional[dict] = None
+        self._capturing = False
         # the serialized device-time replay (the reference's CUDATimer): every
         # ``profile_every``-th frame after frame 0 drains the device and
         # times each stage behind a synchronisation into ``device_timing``;
@@ -504,37 +529,52 @@ class BundleFusion:
     def _rollover_local(self) -> None:
         """The window rollover at a submap boundary: the overlap frame (slot
         S-1: keys, cache, validity) becomes slot 0 of a fresh window with
-        identity relative poses and an empty correspondence store."""
-        old, new = self.local, self._fresh_local()
-        last = self.S - 1
-        copy_cache_frame(new.cache, 0, old.cache, last)
-        for f in dataclasses.fields(KeyframeStore):
-            getattr(new.keys, f.name)[0] = getattr(old.keys, f.name)[last]
-        new.valid[0] = old.valid[last]
-        self.local = new
+        identity relative poses and an empty correspondence store.
 
-    def _frame_step(self, depth_u16, color_u8, cur_slot: int, store_slot: int):
+        The new window is written into the window's own storages, which a
+        captured frame graph reads by address; ``self.local`` becomes a new
+        ``LocalState`` over them, and the object that was live keeps the
+        finished window, in copies."""
+        live, new = self.local, self._fresh_local()
+        last = self.S - 1
+        copy_cache_frame(new.cache, 0, live.cache, last)
+        for f in dataclasses.fields(KeyframeStore):
+            getattr(new.keys, f.name)[0] = getattr(live.keys, f.name)[last]
+        new.valid[0] = live.valid[last]
+        self.local = LocalState(**{f.name: getattr(live, f.name)
+                                   for f in dataclasses.fields(live)})
+        kept = _cloned(live)
+        copy_into(self.local, new)
+        for f in dataclasses.fields(live):
+            setattr(live, f.name, getattr(kept, f.name))
+
+    def _frame_step(self, depth_u16, color_u8, cur_slot: int, store_slot):
         """One frame: archive -> detect -> store -> match/filter -> chain,
-        on ``self.local``, ``self.store`` and ``self.submap_base``.
+        on ``self.local``, ``self.store`` and ``self.submap_base``, all
+        updated in place.
 
         ``cur_slot`` is the frame's position in the submap window,
-        ``store_slot`` its slot in the frame archive. Returns (T_world
+        ``store_slot`` its slot in the frame archive (a host int, or an
+        int64 index tensor of one element on the device). Returns (T_world
         [4, 4], valid bool []) as tensors on the device; nothing is read
-        back here. TSDF work happens in the separate ``_tsdf_dispatch``.
+        back here and, on the card, nothing waits for it, so the whole step
+        can be captured as a CUDA graph (:meth:`_run_frame_step`). TSDF work
+        happens in the separate ``_tsdf_dispatch``.
         """
-        loc, log = self.local, self.timing
-        with log.stage("time_sensor_process"):
+        # a capture times nothing: its stages would time the recording
+        loc, log = self.local, None if self._capturing else self.timing
+        with stage(log, "time_sensor_process"):
             intensity_sift, depth_sift, depth_int, color_int = self._archive_frame(
                 depth_u16, color_u8, store_slot)
         kp = detect_and_describe(intensity_sift, depth_sift, self.sift_cfg, timing=log)
-        with log.stage("time_store"):
+        with stage(log, "time_store"):
             store_keypoints(loc.keys, cur_slot, kp)
             store_cache_frame(loc.cache, cur_slot, depth_int, color_int, self.intr_cache)
 
         if cur_slot > 0:
             mf = match_and_filter(cur_slot, loc.keys, loc.cache, self.intr_sift,
                                   self.intr_cache, self.frontend_local, timing=log)
-            with log.stage("time_misc"):
+            with stage(log, "time_misc"):
                 add_to_residuals(loc.corrs, mf, cur_slot,
                                  torch.arange(self.S, dtype=torch.int32, device=self.device))
                 T_chain, found, _ = chained_sift_transform(mf, loc.rel)
@@ -547,6 +587,132 @@ class BundleFusion:
         loc.rel[cur_slot] = T_rel
         loc.valid[cur_slot] = valid
         return self.submap_base @ T_rel, valid
+
+    # ------------------------------------------------------------------
+    # the per-frame program: _frame_step captured per window slot (the
+    # counterpart of the JAX engine's jitted frame_step)
+    def _graphs_on(self) -> bool:
+        """Whether ``_frame_step`` replays captured graphs: on the card, on
+        the rank that runs the per-frame path, unless switched off."""
+        return self.device.type == "cuda" and self._is_root and not self._eager_frame_step
+
+    def _state_ptrs(self) -> tuple:
+        """Addresses of every tensor ``_frame_step`` reads or writes that
+        outlives it (the window, the frame archive, the anchor pose)."""
+        ts = [self.submap_base, self.local.rel, self.local.valid,
+              self.store.depth_mm, self.store.color]
+        for part in (self.local.keys, self.local.cache, self.local.corrs):
+            ts += [getattr(part, f.name) for f in dataclasses.fields(part)]
+        return tuple(t.data_ptr() for t in ts)
+
+    def _build_programs(self) -> None:
+        """Capture ``_frame_step`` for every window slot 0..S-1 (the
+        counterpart of the JAX engine's ``_build_programs``) against the
+        engine's own state, as ``warmup`` has it: each slot first runs once
+        eagerly on a zero frame on the capture stream (kernel libraries,
+        library handles and workspaces exist before the capture), then is
+        captured. The state is reset in place after."""
+        st = self._static_buffers()
+        st["depth"].zero_()
+        st["color"].zero_()
+        self._graphs.clear()
+        # the zero frames are set-up work: the engine's stage log skips them
+        log, self.timing = self.timing, TimingLog(enabled=False)
+        try:
+            for slot in range(self.S):
+                self._capture_slot(slot, self.frame_cap)
+        finally:
+            self.timing = log
+        # the zero frames wrote the window and the archive's scratch slot
+        copy_into(self.local, self._fresh_local())
+        self.store.depth_mm.view(torch.int16)[self.frame_cap] = 0
+        self.store.color[self.frame_cap] = 0
+
+    def _static_buffers(self) -> dict:
+        """The programs' static inputs (one wire frame, the archive slot as
+        a device index), static outputs (pose, validity), the capture
+        stream and the graphs' shared memory pool; made once."""
+        if self._static is None:
+            h, w, dev = self.intr_input.height, self.intr_input.width, self.device
+            self._static = {
+                "depth": torch.zeros((h, w), dtype=torch.int16, device=dev),
+                "color": torch.zeros((h, w, 3), dtype=torch.uint8, device=dev),
+                "store_slot": torch.zeros((1,), dtype=torch.int64, device=dev),
+                "T_world": torch.zeros((4, 4), dtype=torch.float32, device=dev),
+                "valid": torch.zeros((), dtype=torch.bool, device=dev),
+                "stream": torch.cuda.Stream(dev),
+                "pool": torch.cuda.graph_pool_handle(),
+            }
+        return self._static
+
+    def _step_into_outputs(self, cur_slot: int) -> None:
+        """``_frame_step`` from the static inputs into the static outputs."""
+        st = self._static
+        T_world, valid = self._frame_step(st["depth"], st["color"], cur_slot, st["store_slot"])
+        st["T_world"].copy_(T_world)
+        st["valid"].copy_(valid)
+
+    def _capture_slot(self, cur_slot: int, store_slot: int) -> None:
+        """Run the frame in the static inputs through ``_frame_step`` once,
+        eagerly on the capture stream, then capture the same step as slot
+        ``cur_slot``'s graph (a capture runs nothing). A capture records
+        the kernel launches of the step without making them: they are
+        taken off ``kernels.launch_counts`` and added back at each replay.
+        A failed capture raises; there is no eager fall-back."""
+        from bundlefusion_tpu_torch import kernels
+
+        st, dev = self._static, self.device
+        st["store_slot"].fill_(store_slot)
+        side = st["stream"]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step_into_outputs(cur_slot)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.launch_counts)
+        self._capturing = True
+        try:
+            with torch.cuda.graph(graph, pool=st["pool"], stream=side):
+                self._step_into_outputs(cur_slot)
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing _frame_step for window slot {cur_slot} failed: something in "
+                f"it waits for the card or reads it back") from exc
+        finally:
+            self._capturing = False
+            launched = {k: n - before.get(k, 0) for k, n in kernels.launch_counts.items()}
+            kernels.launch_counts.update(before)
+        self._graphs[cur_slot] = (graph, launched, self._state_ptrs())
+
+    def _run_frame_step(self, depth_u16, color_u8, cur_slot: int, store_slot: int):
+        """``_frame_step`` as ``process_frame`` runs it: on the card the
+        frame is copied into the static inputs and slot ``cur_slot``'s graph
+        is replayed (captured first, behind one eager run of this frame, if
+        the slot has none yet); else eagerly. Returns (T_world [4, 4],
+        valid bool []) on the device, tensors of their own."""
+        if not self._graphs_on():
+            return self._frame_step(depth_u16, color_u8, cur_slot, store_slot)
+        from bundlefusion_tpu_torch import kernels
+
+        st = self._static_buffers()
+        if not isinstance(depth_u16, torch.Tensor):
+            depth_u16, color_u8 = self.upload_frame(depth_u16, color_u8)
+        st["depth"].copy_(depth_u16)
+        st["color"].copy_(color_u8)
+        entry = self._graphs.get(cur_slot)
+        if entry is None:
+            self._capture_slot(cur_slot, store_slot)
+        else:
+            graph, launched, ptrs = entry
+            if ptrs != self._state_ptrs():
+                raise RuntimeError("the window, the frame archive or the anchor pose was "
+                                   "replaced after the frame graphs were captured: the engine "
+                                   "updates them in place")
+            st["store_slot"].fill_(store_slot)
+            graph.replay()
+            for k, n in launched.items():
+                kernels.launch_counts[k] += n
+        return st["T_world"].clone(), st["valid"].clone()
 
     def _read_pose(self, T_world: torch.Tensor, valid: torch.Tensor):
         """The frame's one device -> host copy: 17 floats, the pose and the
@@ -891,7 +1057,7 @@ class BundleFusion:
                 comp.reshape(-1),
                 comp_ok.to(torch.float32),
             ])
-            self.submap_base = overlap_world
+            self.submap_base.copy_(overlap_world)
         self.boundary_stats.append({
             "g": g, "prune_rounds": prune_rounds,
             # + 1: the pack's read-back at retirement
@@ -940,7 +1106,8 @@ class BundleFusion:
             fused["desc"] = fused["desc"].to(torch.bfloat16)
             out = {
                 "fused": fused,
-                "cache_row": {n: getattr(loc.cache, n)[0] for n in CACHE_FIELDS},
+                # copies: the rollover below writes the new window into slot 0
+                "cache_row": {n: getattr(loc.cache, n)[0].clone() for n in CACHE_FIELDS},
                 "local_world": local_world,
                 "lv_out": lv & submap_ok,
                 "submap_ok": submap_ok,
@@ -1146,12 +1313,14 @@ class BundleFusion:
         boundary with its global branch, the revalidation match, the
         ``finish`` solves and the composition. What a timed run would
         otherwise pay at its first frame or boundary (kernel builds, library
-        handles, first-call set-up) is paid here. A zero frame contributes no
-        TSDF blocks, no correspondences and no keyframe validity; the window
-        and the keyframe graph are replaced by fresh ones at the end, so the
-        state is a fresh engine's. On a mesh every rank calls it (the
-        boundary's collectives run once); rank 0 alone runs the per-frame
-        paths. Returns elapsed seconds."""
+        handles, first-call set-up) is paid here. On the card it then
+        captures ``_frame_step`` once per window slot (``_build_programs``).
+        A zero frame contributes no TSDF blocks, no correspondences and no
+        keyframe validity; the window is reset in place and the keyframe
+        graph replaced by a fresh one at the end, so the state is a fresh
+        engine's. On a mesh every rank calls it (the boundary's collectives
+        run once); rank 0 alone runs the per-frame paths. Returns elapsed
+        seconds."""
         assert self.frame_idx == 0, "warmup() must run before the first frame"
         t0 = time.perf_counter()
         dev = self.device
@@ -1189,10 +1358,13 @@ class BundleFusion:
             self._pack_tail()
         self._sync_device()
         if self._is_root:
-            self.local = self._fresh_local()
+            copy_into(self.local, self._fresh_local())
         self.glob = self._fresh_global()
         self.kf_valid_dev.zero_()
-        self.submap_base = torch.eye(4, dtype=torch.float32, device=dev)
+        self.submap_base.copy_(torch.eye(4, dtype=torch.float32, device=dev))
+        if self._graphs_on():
+            self._build_programs()
+            self._sync_device()
         self.timing = TimingLog(self.timing.enabled, self.timing.sync)
         self.boundary_stats.clear()
         self.last_render = None
@@ -1260,8 +1432,8 @@ class BundleFusion:
             depth_dev, color_dev = depth if color is None else self.upload_frame(depth, color)
             store_slot = self._store_slot(f)
             with self._device_stage("dev_frame_step", prof):
-                T_world_dev, valid_dev = self._frame_step(depth_dev, color_dev, cur_slot,
-                                                          store_slot)
+                T_world_dev, valid_dev = self._run_frame_step(depth_dev, color_dev, cur_slot,
+                                                              store_slot)
             # the TSDF dispatch's op signs are host lists: the frame's one read
             T_world, valid = self._read_pose(T_world_dev, valid_dev)
 

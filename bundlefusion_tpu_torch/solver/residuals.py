@@ -3,8 +3,9 @@
 Port of ``bundlefusion_tpu/solver/residuals.py``: a fixed-capacity
 structure-of-arrays of ``EntryJ{imgIdx_i, imgIdx_j, pos_i, pos_j}`` residuals
 built from filtered SIFT matches, with -1 image indices marking invalid
-entries. The store is updated in place; the append cursor ``count`` is a
-0-d tensor on the device, so appending reads nothing back.
+entries. The store is updated in place, into the tensors it was made with,
+so a captured frame graph keeps writing where it did; the append cursor
+``count`` is a 0-d tensor on the device, so appending reads nothing back.
 """
 
 from __future__ import annotations
@@ -92,8 +93,8 @@ def append_corrs(store: CorrStore, img_i, img_j, p_i, p_j, valid,
     for name, vals in new.items():
         old = getattr(store, name)
         m = take if old.ndim == 1 else take[:, None]
-        setattr(store, name, torch.where(m, vals[src].to(old.dtype), old))
-    store.count = store.count + torch.clamp(n_valid, max=C - store.count).to(torch.int32)
+        old.copy_(torch.where(m, vals[src].to(old.dtype), old))
+    store.count.add_(torch.clamp(n_valid, max=C - store.count).to(torch.int32))
     return store
 
 
@@ -103,14 +104,14 @@ def invalidate_image_pair(store: CorrStore, frame_a, frame_b) -> CorrStore:
     kill = ((store.img_i == frame_a) & (store.img_j == frame_b)) | (
         (store.img_i == frame_b) & (store.img_j == frame_a)
     )
-    store.img_i = torch.where(kill, -1, store.img_i)
+    store.img_i.masked_fill_(kill, -1)
     return store
 
 
 def invalidate_frame(store: CorrStore, frame) -> CorrStore:
     """Invalidate all corrs touching a frame, in place."""
     kill = (store.img_i == frame) | (store.img_j == frame)
-    store.img_i = torch.where(kill, -1, store.img_i)
+    store.img_i.masked_fill_(kill, -1)
     return store
 
 
@@ -140,6 +141,6 @@ def compact_corrs(store: CorrStore) -> CorrStore:
                        ("key_i", -1), ("key_j", -1)):
         old = getattr(store, name)
         m = ok if old.ndim == 1 else ok[:, None]
-        setattr(store, name, torch.where(m, old[ci], fill))
-    store.count = n_live.to(torch.int32)
+        old.copy_(torch.where(m, old[ci], fill))
+    store.count.copy_(n_live)
     return store

@@ -20,6 +20,18 @@ def dataclass_from_numpy(cls, arrays: dict, dtypes: dict, device):
                   for f in fields(cls)})
 
 
+def copy_into(dst, src) -> None:
+    """Copy a (nested) dataclass of tensors into another of the same
+    shapes, tensor by tensor and in place: ``dst`` keeps its storages (a
+    captured CUDA graph reads and writes them by address)."""
+    for f in fields(dst):
+        d, s = getattr(dst, f.name), getattr(src, f.name)
+        if isinstance(d, torch.Tensor):
+            d.copy_(s)
+        else:
+            copy_into(d, s)
+
+
 # Device -> host reads made by data-dependent branches (each is a wait for
 # the card). Code that branches on a tensor's value reads it through
 # ``read_host`` so a caller can count the waits of a stage.

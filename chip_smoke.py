@@ -20,7 +20,14 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    masks equal (on a pair that the plain version itself decides differently
    on the card and on the CPU, float32 rounding decides it, and the kernel
    must give one of its two answers), transforms within 1e-4, two calls
-   bit for bit, one call waiting for nothing, times in turns;
+   bit for bit, one call waiting for nothing, times in turns; then the
+   surface-area filter's kernel against its plain version
+   (``surface_area_filter_ref``) on the same inputs with the greedy kernel's
+   inlier masks, at 10, 64 and 640 pairs: areas within 1e-5 or 1e-4
+   relative and keep flags equal (where an image's eigengap is under 1e-3
+   the reference is ill-posed and either answer stands), two calls bit for
+   bit, one call waiting for nothing, times in turns, and a batched
+   ``torch.linalg.eigh`` of the same covariances beside them;
 3. slice: drive the engine over 40 synthetic frames at poses with 1 cm of
    noise, pushing the noise-free poses after frames 10, 20 and 30 (as
    submap retirements do) and at the end, then drain the re-integration
@@ -31,18 +38,24 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
 5. frontend: the same 40 wire frames through the whole per-frame path in
    the order ``process_frame`` has it, with the engine estimating its own
    poses: ``_frame_step`` (archive, SIFT, stores, matching, the Kabsch ->
-   surface-area -> dense-verify cascade, correspondences, chained pose),
-   one read-back of pose and validity, the TSDF dispatch, bookkeeping, the
-   render; at every 10th frame the window rolls over and the chained pose
-   becomes the new window's base. Runs in turns with the greedy filter's
-   kernel and with its plain version patched in (``_PlainKabsch``; the
-   package has no switch): once each with one wait per frame (frame times,
-   checks on the kernel's run), once each with a wait around every stage
-   (stage times, the filter's host reads), then for each 5 frames of
-   ``_frame_step`` under the profiler (launches per frame, busy share) and 2
-   with a trace and an op counter per stage (launches and dispatched ops by
-   stage). The four runs' validity flags must be equal and the kernel's runs
-   must read nothing back for the filter. It fails unless all 40
+   surface-area -> dense-verify cascade, correspondences, chained pose) as
+   ``process_frame`` runs it (``_run_frame_step``), one read-back of pose
+   and validity, the TSDF dispatch, bookkeeping, the render; at every 10th
+   frame the window rolls over and the chained pose becomes the new
+   window's base. Five runs with one wait per frame, in turns: the step
+   replayed from its captured graphs (the checks), run eagerly (the
+   engine's private switch), eagerly with the greedy filter's plain version
+   patched in (``_PlainKabsch``; the package has no switch), eagerly, and
+   the graphs again: frame times, the step's host ms and its host waits per
+   frame (``set_sync_debug_mode("warn")``), launches. The flags must be
+   equal in all five, the graph's and the eager run's chained poses equal
+   bit for bit and their launches equal, and the graphs and the kernel's
+   eager run must make no host wait. Then eagerly, with a wait around every
+   stage, the plain filter and the kernel (stage times, the filter's host
+   reads), then for the graphs, eager and plain each 5 frames of the step
+   under the profiler (launches per frame, device ms, busy share; for the
+   graphs also CUDA events around each replay) and 2 eager frames with a
+   trace and an op counter per stage. It fails unless all 40
    frames are valid, the chained trajectory's ATE RMSE is under 0.10 m,
    the render at the last pose is within 2 voxels of the true depth, the
    table's invariants hold and no allocation failed;
@@ -136,9 +149,12 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    131 072 blocks, 16 384 global correspondences, 64 keyframes, 108 frames:
    every frame uploaded before ``warmup``, 12 warm-up and 60 timed frames,
    16 replayed with a wait around every stage, 20 streamed, then
-   ``finish(extra_solves=2)``). It fails unless the command exits 0 on the
-   card with 108 of 108 frames valid, no pair dropped, the ATE under 0.10 m
-   and all four kernels launched.
+   ``finish(extra_solves=2)``). Four runs in turns: as it is (the frame
+   step replayed from its graphs), with the step run eagerly, with the
+   greedy filter's plain version (eager), as it is again. It fails unless
+   every run but the plain one exits 0 on the card with 108 of 108 frames
+   valid, no pair dropped, the ATE under 0.10 m and all five kernels
+   launched, and the plain one keeps every frame valid.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, a
 ``{"slice": {...}}`` line, a ``{"frontend": {...}}`` line, an ``{"engine":
@@ -151,9 +167,11 @@ engine phase's first run, ``launches_recorded`` the whole recorded phase,
 ``launches_mesh`` rank 0's mesh engine run (c), ``launches_capacity`` the
 drift demo run of the capacity phase, ``launches_large_table`` its run (e),
 ``launches_bench`` the bench's whole run (its own process, counted from 0);
-the counts are set to 0 just before each. For ``kabsch_filter``, whose main
-path is the per-frame path (the fusion half runs no match), ``launches`` is
-the frontend phase's first run, as ``launches_frontend``; its ``ms`` /
+the counts are set to 0 just before each. For ``kabsch_filter`` and
+``surface_area``, whose main path is the per-frame path (the fusion half
+runs no match), ``launches`` is the frontend phase's first run (the
+graphs'), as ``launches_frontend``; a replay adds the launches its graph
+captured; its ``ms`` /
 ``plain_ms`` (CUDA events, host enqueue included) and ``kernel_ms`` (the
 profiler) are at 10 pairs, ``_64`` / ``_640`` at 64 / 640; ``longest_fits``
 counts the fits of the pair with the most, ``us_per_fit`` is ``kernel_ms``
@@ -165,7 +183,12 @@ version on the CPU, pair by pair) at ``FLOP_PER_FIT`` and
 ``FLOP_PER_MASKED_MATCH``: the work is a serial chain of dependent fits per
 pair, so the kernel sits far above it; ``mismatching_pairs`` counts pairs
 unlike the plain version's on the card, ``plain_card_cpu_split_pairs``
-those the plain version decides differently on the card and the CPU. ``large_table`` in the
+those the plain version decides differently on the card and the CPU. For
+``surface_area`` the same keys, ``eigh_ms`` (a batched
+``torch.linalg.eigh`` of the pairs' 3x3 covariances, the library call for
+the eigen part; ``library_ms`` is null: no one call computes the filter),
+``ill_posed_images`` and a bound from ``FLOP_PER_AREA_MATCH`` /
+``FLOP_PER_AREA_SOLVE``. ``large_table`` in the
 ``tsdf_apply`` entry has the op's ``ms`` / ``plain_ms`` by CUDA events at
 run (e)'s checked dispatches, its live and changed rows, and the bound from
 the changed rows. In
@@ -196,6 +219,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -227,6 +251,7 @@ REPLACES = {
     "tsdf_cull": "bundlefusion_tpu/tsdf/apply_pallas.py:554",
     "tsdf_apply": "bundlefusion_tpu/tsdf/apply_pallas.py:104",
     "kabsch_filter": "bundlefusion_tpu/ops/filters.py:80",
+    "surface_area": "bundlefusion_tpu/ops/filters.py:234",
 }
 TSDF_KERNELS = ("tsdf_prepare", "tsdf_cull", "tsdf_apply")  # the fused TSDF op's three
 KABSCH_PAIRS = (10, 64, 640)  # the greedy filter: one frame's pairs, two global matches
@@ -237,6 +262,14 @@ KABSCH_T_ATOL = 1e-4        # kernel vs plain transforms (tests/test_torch_filte
 # cross-covariance, covariance and residual terms
 FLOP_PER_FIT = 1450
 FLOP_PER_MASKED_MATCH = 110
+# the surface-area filter, per image: per match (every one of the R, as the
+# plain version's sums take them) the weight, the first and second moments,
+# the plane projection and the box extents; per image two symmetric
+# eigenproblems (3x3 and 2x2)
+FLOP_PER_AREA_MATCH = 110
+FLOP_PER_AREA_SOLVE = 1500
+AREA_ATOL, AREA_RTOL = 1e-5, 1e-4   # kernel vs plain areas (tests/torch_surface_area_cases.py)
+AREA_GAP_RTOL = 1e-3                # below it the reference is ill-posed
 
 
 def _sync():
@@ -560,12 +593,12 @@ def phase_kernels(dev, seq, noisy, gt, app):
 
 def _fusion_launches_ok(launches, dispatches) -> bool:
     """The fusion half's launches: each TSDF kernel once per dispatch, and
-    the greedy filter, which only the frontend runs, never."""
+    the two filters, which only the frontend runs, never."""
     from bundlefusion_tpu_torch import kernels
 
     return (dispatches > 0 and set(launches) == set(kernels.SOURCES)
             and all(launches[k] == dispatches for k in TSDF_KERNELS)
-            and launches["kabsch_filter"] == 0)
+            and launches["kabsch_filter"] == launches["surface_area"] == 0)
 
 
 def _filter_inputs(dev, seq, app, bundling, sift_cfg):
@@ -718,6 +751,121 @@ def phase_kabsch(dev, seq, app, bundling=None, sift_cfg=None):
             # count, transform, valid_pair); the fits these inputs need
             "bound": _bound(pairs * R * (4 * 10 + 1 + 1) + pairs * (8 + 64 + 1),
                             fits * FLOP_PER_FIT + masked * FLOP_PER_MASKED_MATCH),
+        }
+    return out
+
+
+def _ill_posed(pts, mask):
+    """[P] bool: an image whose 3x3 covariance has its two smallest
+    eigenvalues, or whose plane's 2x2 covariance its two, within
+    AREA_GAP_RTOL of each other (relative to the largest): its plane or box
+    axes are not defined by the points, and any area is an answer
+    (tests/torch_surface_area_cases.py)."""
+    out = np.zeros(len(pts), bool)
+    for p, (x, m) in enumerate(zip(pts.astype(np.float64), mask)):
+        w = m & np.isfinite(x).all(-1)
+        if w.sum() < 2:
+            continue
+        c = x[w] - x[w].mean(0)
+        lam, vec = np.linalg.eigh(c.T @ c / len(c))
+        if lam[2] <= 0:
+            continue
+        if lam[1] - lam[0] < AREA_GAP_RTOL * lam[2]:
+            out[p] = True
+            continue
+        q = c @ vec[:, [2, 1]]
+        mu = np.linalg.eigvalsh(q.T @ q / len(c))
+        out[p] = mu[1] - mu[0] < AREA_GAP_RTOL * mu[1]
+    return out
+
+
+def phase_surface_area(dev, seq, app, bundling=None, sift_cfg=None):
+    """The surface-area filter's kernel against its plain version on the
+    card, on the real inputs of the first window (the raw matches' points
+    and the greedy kernel's inlier masks) at 10 pairs (one frame's call), 64
+    and 640 (the pool cycled): areas within AREA_ATOL or AREA_RTOL and keep
+    flags equal where the reference is well-posed, two calls equal bit for
+    bit, one call waiting for nothing; then times in turns with the plain
+    version, the kernel's device time, a batched ``torch.linalg.eigh`` of
+    the same covariances (the library call for its eigen part) and the
+    bound."""
+    from bundlefusion_tpu_torch.ops import filters
+
+    thresh = 0.032
+    last, pool = _filter_inputs(dev, seq, app, bundling, sift_cfg)
+    n_pool = pool[0].shape[0]
+    out = {}
+    for pairs in KABSCH_PAIRS:
+        raw = last if pairs == KABSCH_PAIRS[0] else [
+            a[[i % n_pool for i in range(pairs)]].contiguous() for a in pool]
+        kf = filters.kabsch_filter(*raw, 25, 4, 4e-4)
+        args = (raw[0], raw[1], kf["inlier_mask"])
+
+        def run_kernel():
+            return filters.surface_area_filter(*args, thresh)
+
+        def run_plain():
+            return filters.surface_area_filter_ref(*args, thresh)
+
+        got, want = run_kernel(), run_plain()
+        _sync()
+        g = [x.cpu().numpy() for x in got]
+        w = [x.cpu().numpy() for x in want]
+        src, tgt, mask = (a.cpu().numpy() for a in args)
+        skips = (_ill_posed(src, mask), _ill_posed(tgt, mask))
+        bad = np.zeros(pairs, bool)
+        undecided = np.zeros(pairs, bool)
+        err = 0.0
+        for ga, wa, skip in zip(g[1:], w[1:], skips):
+            e = np.abs(ga - wa)
+            bad |= ~((e <= AREA_ATOL) | (e <= AREA_RTOL * np.abs(wa)) | skip)
+            err = max(err, float(e[~skip].max()) if (~skip).any() else 0.0)
+            undecided |= skip & ((ga >= thresh) | (wa >= thresh))
+        bad |= (g[0] != w[0]) & ~undecided
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = run_kernel()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync()
+        repeat = torch.equal(got[0], again[0]) and all(
+            torch.equal(x.view(torch.int32), y.view(torch.int32))
+            for x, y in zip(got[1:], again[1:]))
+        if bad.any() or not repeat:
+            raise AssertionError(f"surface_area at {pairs} pairs: pairs "
+                                 f"{np.flatnonzero(bad).tolist()} differ from the plain version "
+                                 f"(kernel {[x[bad].tolist() for x in g]}, plain "
+                                 f"{[x[bad].tolist() for x in w]}); two calls equal: {repeat}")
+        # the eigen part as one library call: the covariances of both images
+        wts = torch.cat([args[2], args[2]]).to(torch.float32)
+        pts = torch.cat([args[0], args[1]])
+        wts = torch.where(torch.isfinite(pts).all(-1), wts, 0.0)
+        covs = filters._weighted_cov(torch.where(wts[..., None] > 0, pts, 0.0), wts)
+        times = {run_kernel: [], run_plain: []}
+        order = (run_plain, run_kernel)
+        for r in range(REPS):
+            for fn in order if r % 2 == 0 else order[::-1]:
+                _sync()
+                times[fn].append(_event_ms(fn))
+        eigh_ms = statistics.median(_event_ms(lambda: torch.linalg.eigh(covs))
+                                    for _ in range(REPS))
+        R = mask.shape[1]
+        out[str(pairs)] = {
+            "pairs": pairs,
+            "inliers": int(mask.sum()),
+            "kept_pairs": int(g[0].sum()),
+            "ill_posed_images": int(skips[0].sum() + skips[1].sum()),
+            "mismatching_pairs": int(bad.sum()),
+            "max_abs_err": err,
+            "ms": statistics.median(times[run_kernel]),
+            "plain_ms": statistics.median(times[run_plain]),
+            "kernel_ms": _kernel_device_ms(run_kernel, "surface_area_kernel"),
+            "eigh_ms": eigh_ms,
+            "eigh_batch": list(covs.shape),
+            # inputs once (two point sets, the mask), outputs once (keep, two
+            # areas); every match of both images and their eigenproblems
+            "bound": _bound(pairs * R * (12 + 12 + 1) + pairs * (1 + 4 + 4),
+                            2 * pairs * (R * FLOP_PER_AREA_MATCH + FLOP_PER_AREA_SOLVE)),
         }
     return out
 
@@ -1063,7 +1211,7 @@ def _drive_frontend_frame(eng, seq, f, stage):
     cur_slot = sub_len if boundary else slot
     store_slot = eng._store_slot(f)
     eng.frame_idx = f
-    T_dev, valid_dev = stage("frame_step", lambda: eng._frame_step(
+    T_dev, valid_dev = stage("frame_step", lambda: eng._run_frame_step(
         seq["depth"][f], seq["color"][f], cur_slot, store_slot))
     T_world, valid = stage("readback", lambda: eng._read_pose(T_dev, valid_dev))
     stage("tsdf", lambda: eng._tsdf_dispatch(store_slot, T_world, valid))
@@ -1071,7 +1219,7 @@ def _drive_frontend_frame(eng, seq, f, stage):
     stage("render", lambda: eng._render_frame(f, T_world))
     if boundary:
         eng._rollover_local()
-        eng.submap_base = T_dev
+        eng.submap_base.copy_(T_dev)
     return cur_slot, valid
 
 
@@ -1081,6 +1229,21 @@ def _stage_ms(log, coarse):
     out = {k: v * 1e3 for k, v in log.medians().items()}
     out.update({k: statistics.median(v) * 1e3 for k, v in coarse.items()})
     return out
+
+
+def _sync_warnings(fn):
+    """(fn's result, how many operations in it made the host wait for the
+    card), from ``set_sync_debug_mode("warn")``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_FRAMES):
@@ -1097,22 +1260,36 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
 
     bundling = bundling or BundlingConfig()
 
-    def engine():
-        return BundleFusion(seq["intrinsics"], app, bundling, sift_cfg=sift_cfg,
-                            max_keyframes=n_frames // bundling.submap_size + 2, device=dev)
+    def engine(mode):
+        """An engine whose ``_frame_step`` runs as ``mode`` says: replayed
+        from its graphs (captured here, before the first frame), eagerly,
+        or eagerly with the greedy filter's plain version (which reads the
+        card and cannot be captured)."""
+        eng = BundleFusion(seq["intrinsics"], app, bundling, sift_cfg=sift_cfg,
+                           max_keyframes=n_frames // bundling.submap_size + 2, device=dev)
+        eng._eager_frame_step = mode != "graph"
+        if mode == "graph":
+            eng._build_programs()
+            _sync()
+        return eng
 
     def drive(eng, stage_syncs):
-        """All frames; per-frame wall ms (one wait at the frame's end) and
-        the coarse stages' seconds. With ``stage_syncs`` every stage, the
-        engine's own included, is closed by a wait for the card."""
+        """All frames; per-frame wall ms (one wait at the frame's end), the
+        coarse stages' seconds and the host waits of each frame's step. With
+        ``stage_syncs`` every stage, the engine's own included, is closed by
+        a wait for the card."""
         eng.timing.sync = _sync if stage_syncs else None
-        coarse = {}
+        coarse, step_syncs = {}, []
 
         def stage(name, fn):
             if stage_syncs:
                 _sync()
             t0 = time.perf_counter()
-            r = fn()
+            if name == "frame_step" and not stage_syncs:
+                r, n = _sync_warnings(fn)
+                step_syncs.append(n)
+            else:
+                r = fn()
             if stage_syncs:
                 _sync()
             coarse.setdefault(name, []).append(time.perf_counter() - t0)
@@ -1128,25 +1305,35 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
             valid.append(v)
             # after a rollover the frame sits in slot 0 of the new window
             keys.append(eng.local.keys.valid[0 if cur_slot == eng.S - 1 else cur_slot].sum())
-        return frame_ms, valid, coarse, torch.stack(keys).cpu().numpy()
+        return frame_ms, valid, coarse, torch.stack(keys).cpu().numpy(), step_syncs
 
-    def counted_run(plain):
-        """Run A: one wait per frame; the kernel launches, frame times and
-        flags (``plain``: the greedy filter's plain version)."""
-        eng = engine()
+    def counted_run(mode):
+        """Run A: one wait per frame; the kernel launches, frame times,
+        the step's host waits and flags."""
+        eng = engine(mode)
         for name in kernels.launch_counts:
             kernels.launch_counts[name] = 0
         torch.cuda.reset_peak_memory_stats()
-        with _PlainKabsch() if plain else contextlib.nullcontext():
-            frame_ms, valid, coarse, keys = drive(eng, stage_syncs=False)
-        return eng, frame_ms, valid, coarse, keys, dict(kernels.launch_counts)
+        with _PlainKabsch() if mode == "plain" else contextlib.nullcontext():
+            frame_ms, valid, coarse, keys, step_syncs = drive(eng, stage_syncs=False)
+        return eng, frame_ms, valid, coarse, keys, dict(kernels.launch_counts), step_syncs
+
+    def summary(mode, frame_ms, coarse, launches, step_syncs):
+        return {"mode": mode,
+                "frame_ms_median": statistics.median(frame_ms),
+                "frame_ms_max": max(frame_ms[1:]),
+                "frame_step_host_ms_median": statistics.median(coarse["frame_step"]) * 1e3,
+                "syncs_per_frame_mean": statistics.fmean(step_syncs),
+                "syncs_per_frame_max": max(step_syncs),
+                "launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     def staged_run(plain):
-        """Run B: a wait around every stage, the probe on: stage times,
-        flags, raw / filtered matches and the filter's host reads."""
-        eng = engine()
+        """Run B (eager): a wait around every stage, the probe on: stage
+        times, flags, raw / filtered matches and the filter's host reads."""
+        eng = engine("plain" if plain else "eager")
         with _PlainKabsch() if plain else contextlib.nullcontext(), _FrontendProbe() as probe:
-            frame_ms, valid, coarse, _ = drive(eng, stage_syncs=True)
+            frame_ms, valid, coarse, _, _ = drive(eng, stage_syncs=True)
         out = {"frame_ms_median_with_stage_syncs": statistics.median(frame_ms),
                "stage_ms_median": _stage_ms(eng.timing, coarse), **probe.summary()}
         out["ate_rmse_m"], _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
@@ -1154,32 +1341,42 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         torch.cuda.empty_cache()
         return out, valid
 
-    def profiled_run(plain):
-        """Run C: ``_frame_step`` alone under the profiler (launches, device
-        time, busy share), then two frames with a trace and an op counter
-        per stage."""
-        eng = engine()
+    def profiled_run(mode):
+        """Run C: the step alone under the profiler (launches, device time,
+        busy share; for the graphs also CUDA events around each replay),
+        then, run eagerly, two frames with a trace and an op counter per
+        stage."""
+        eng = engine(mode)
         first = min(n_frames - FRONTEND_PROFILE_FRAMES - 2, bundling.submap_size + 1)
         for f in range(first):
             _drive_frontend_frame(eng, seq, f, lambda _name, fn: fn())
         _sync()
         sub_len = eng.S - 1
-        with _PlainKabsch() if plain else contextlib.nullcontext():
+        n_prof = FRONTEND_PROFILE_FRAMES
+        frames = range(first, first + n_prof)
+        handles = {f: eng.upload_frame(seq["depth"][f], seq["color"][f]) for f in frames}
+        _sync()
+        event_ms = []
+        with _PlainKabsch() if mode == "plain" else contextlib.nullcontext():
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                for f in range(first, first + FRONTEND_PROFILE_FRAMES):
-                    eng._frame_step(seq["depth"][f], seq["color"][f], f % sub_len,
-                                    eng._store_slot(f))
+                for f in frames:
+                    eng._run_frame_step(*handles[f], f % sub_len, eng._store_slot(f))
                 _sync()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             evs = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
             device_ms = sum(e.self_device_time_total for e in evs) / 1e3
-            if not device_ms > 0:
+            if not device_ms > 0 and mode != "graph":
                 raise AssertionError("the profiler's trace holds no device time")
             evs.sort(key=lambda e: -e.self_device_time_total)
-            n_prof = FRONTEND_PROFILE_FRAMES
-            # two more frames, each stage under its own trace and op counter
+            if mode == "graph":
+                for f in frames:
+                    event_ms.append(_event_ms(lambda f=f: eng._run_frame_step(
+                        *handles[f], f % sub_len, eng._store_slot(f))))
+            # two more frames, eagerly, each stage under its own trace and
+            # op counter
+            eng._eager_frame_step = True
             eng.timing = counts = _StageCounts()
             n_counted = 2
             for f in range(first + n_prof, first + n_prof + n_counted):
@@ -1189,23 +1386,30 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
                      for k, tot in sorted(counts.totals.items())}
         del eng
         torch.cuda.empty_cache()
-        return {
+        out = {
+            "mode": mode,
             "frames": n_prof,
             "first_frame": first,
             "cuda_kernels_per_frame": sum(e.count for e in evs) / n_prof,
             "dispatched_ops_per_frame": sum(v["dispatched_ops"] for v in per_stage.values()),
             "wall_ms_per_frame": wall_ms / n_prof,
-            "device_ms_per_frame": device_ms / n_prof,
-            "device_busy_share": device_ms / wall_ms,
+            "device_ms_per_frame": device_ms / n_prof if device_ms > 0 else None,
+            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
             "top_device_ms_per_frame": [[e.key[:80], e.self_device_time_total / 1e3 / n_prof,
                                          e.count / n_prof] for e in evs[:10]],
-            "per_stage": per_stage,
+            "per_stage_eager": per_stage,
         }
+        if event_ms:
+            # CUDA events around the replays (inputs' copies included): the
+            # step's span on the card, gaps between its nodes included
+            out["replay_event_ms_median"] = statistics.median(event_ms)
+        return out
 
-    # ---- run A with the kernel: the checks ----
-    eng, frame_ms, valid, coarse_a, keys, launches = counted_run(plain=False)
+    # ---- run A with the graphs: the checks ----
+    eng, frame_ms, valid, coarse_a, keys, launches, syncs_a = counted_run("graph")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     host_ms = _stage_ms(eng.timing, coarse_a)
+    in_turns = [summary("graph", frame_ms, coarse_a, launches, syncs_a)]
 
     ate, n_ate = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
     inv = check_invariants(eng.table)
@@ -1224,29 +1428,51 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         raise AssertionError(f"table invariants {inv}, alloc failures {fails}")
     if not med_err < 2 * eng.tsdf_params.voxel_size:
         raise AssertionError(f"render median |depth - GT| {med_err} m >= 2 voxels")
+    if any(syncs_a):
+        raise AssertionError(f"a replayed frame step made the host wait: {syncs_a}")
+    final_graph = np.stack(eng.sift_world)
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- in turns: run A with the plain filter, run B plain, run B kernel ----
-    eng, frame_ms_p, valid_p, coarse_p, _, launches_p = counted_run(plain=True)
-    host_ms_p = _stage_ms(eng.timing, coarse_p)
-    ate_p, _ = evaluate_ate_rmse(np.stack(eng.sift_world), gt[:n_frames])
-    del eng
-    torch.cuda.empty_cache()
-    staged_p, valid_bp = staged_run(plain=True)
-    staged, valid_b = staged_run(plain=False)
-    if not valid_b == valid_bp == valid_p == valid:
-        raise AssertionError(f"validity flags differ between the runs (kernel A, plain A, "
-                             f"plain B, kernel B): {valid} {valid_p} {valid_bp} {valid_b}")
+    # ---- in turns: eager, plain filter, eager, graph (run A each) ----
+    runs = {}
+    for mode in ("eager", "plain", "eager", "graph"):
+        eng, ms, v, coarse, _, la, syncs = counted_run(mode)
+        if v != valid:
+            raise AssertionError(f"validity flags differ between the graph run and a {mode} "
+                                 f"run: {valid} {v}")
+        in_turns.append(summary(mode, ms, coarse, la, syncs))
+        runs.setdefault(mode, (eng.timing, coarse, np.stack(eng.sift_world), la, syncs))
+        del eng
+        gc.collect()   # the engine holds reference cycles: free its memory before the next
+        torch.cuda.empty_cache()
+    eager_log, coarse_e, final_eager, launches_e, syncs_e = runs["eager"]
+    host_ms_p = _stage_ms(runs["plain"][0], runs["plain"][1])
+    ate_p, _ = evaluate_ate_rmse(runs["plain"][2], gt[:n_frames])
+    launches_p = runs["plain"][3]
+    if launches_e != launches or any(syncs_e):
+        raise AssertionError(f"eager run: launches {launches_e} against the graphs' "
+                             f"{launches}, host waits {syncs_e}")
+    graph_equals_eager = bool(np.array_equal(final_graph, final_eager))
+    if not graph_equals_eager:
+        raise AssertionError("the chained poses of the graph and the eager run differ: "
+                             f"{np.abs(final_graph - final_eager).max()}")
     if any(launches_p[k] != launches[k] for k in TSDF_KERNELS) or launches_p["kabsch_filter"]:
         raise AssertionError(f"plain run launches {launches_p} against {launches}")
+    staged_p, valid_bp = staged_run(plain=True)
+    staged, valid_b = staged_run(plain=False)
+    if not valid_b == valid_bp == valid:
+        raise AssertionError(f"validity flags differ between the staged runs (plain B, kernel "
+                             f"B) and run A: {valid_bp} {valid_b} {valid}")
     if staged["valid_pairs_per_frame_min"] < 1:
         raise AssertionError("a frame after the first had no valid pair")
     if staged["kabsch_host_reads_per_frame_max"] != 0:
         raise AssertionError(f"the kernel's filter read the card: {staged}")
     stage_ms = staged.pop("stage_ms_median")
-    frame_step_profile = profiled_run(plain=False)
-    frame_step_profile_plain = profiled_run(plain=True)
+    frame_step_profile = profiled_run("graph")
+    frame_step_profile_eager = profiled_run("eager")
+    frame_step_profile_plain = profiled_run("plain")
 
     return {
         "frames": n_frames,
@@ -1261,6 +1487,7 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         "frame_ms_median_with_stage_syncs": staged.pop("frame_ms_median_with_stage_syncs"),
         "stage_ms_median": stage_ms,
         "stage_host_ms_median": host_ms,
+        "stage_host_ms_median_eager": _stage_ms(eager_log, coarse_e),
         "keys_per_frame_mean": float(keys.mean()),
         "keys_per_frame_min": int(keys.min()),
         **staged,
@@ -1268,14 +1495,17 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         "live_blocks": live_blocks,
         "peak_mem_gb": peak_gb,
         "frame_step_profile": frame_step_profile,
-        # the same frames with the greedy filter's plain version, in turns
-        # with the kernel (kernel A, plain A, plain B, kernel B); flags equal
+        "frame_step_profile_eager": frame_step_profile_eager,
+        # runs A in turns (graph, eager, plain, eager, graph): the same 40
+        # validity flags in every run, the graph's and the eager run's chained
+        # poses bit for bit, their launches equal
+        "graph_vs_eager": {"valid_equal": True, "poses_bitwise_equal": graph_equals_eager,
+                           "in_turns": in_turns},
+        # the greedy filter's plain version (eager)
         "plain_filter": {
             "valid_equal": True,
             "ate_rmse_m": ate_p,
             "launches": launches_p,
-            "frame_ms_median": statistics.median(frame_ms_p),
-            "frame_ms_max": max(frame_ms_p[1:]),
             "stage_host_ms_median": host_ms_p,
             "frame_step_profile": frame_step_profile_plain,
             **staged_p,
@@ -2409,25 +2639,37 @@ def phase_capacity(dev, boundary_g=640, per_pair=25, overflow=CAPACITY_OVERFLOW)
 
 
 BENCH_TIMEOUT_S = 400   # the bench command's time limit (its child is killed then)
-# the bench with the greedy filter's plain version patched in (the package
-# has no switch): ``python -c PLAIN_BENCH --cache DIR``
+# the bench with ``_frame_step`` run eagerly (the engine's private switch):
+# ``python -c EAGER_BENCH --cache DIR``
+EAGER_BENCH = """import sys
+from bundlefusion_tpu_torch.pipeline import online
+online.BundleFusion._eager_frame_step = True
+from bundlefusion_tpu_torch import bench
+bench.main(sys.argv[1:])
+"""
+# ... and with the greedy filter's plain version patched in (the package has
+# no switch for it; it reads the card, so the step runs eagerly)
 PLAIN_BENCH = """import sys
 from bundlefusion_tpu_torch.ops import filters
-from bundlefusion_tpu_torch.pipeline import frontend
+from bundlefusion_tpu_torch.pipeline import frontend, online
 frontend.kabsch_filter = filters.kabsch_filter_ref
+online.BundleFusion._eager_frame_step = True
 from bundlefusion_tpu_torch import bench
 bench.main(sys.argv[1:])
 """
 BENCH_KEYS = ("value", "ms_per_frame", "fps_streaming", "valid_frames", "pairs_dropped",
               "ate_rmse_cm", "reint_frames", "reint_ops", "reint_frames_timed",
-              "reint_ops_timed", "stage_ms", "stage_dev_ms", "kernel_launches", "phase_s")
+              "reint_ops_timed", "stage_ms", "stage_dev_ms", "kernel_launches", "compile_s",
+              "peak_mem_gb", "phase_s")
 
 
-def _bench_child(cache, plain=False) -> dict:
-    """One run of the bench command in a child process; its last line."""
+def _bench_child(cache, mode="graph") -> dict:
+    """One run of the bench command in a child process, ``mode`` "graph"
+    (as it is), "eager" or "plain"; its last line."""
     import os
 
-    cmd = ["-c", PLAIN_BENCH] if plain else ["-m", "bundlefusion_tpu_torch.bench"]
+    cmd = {"graph": ["-m", "bundlefusion_tpu_torch.bench"], "eager": ["-c", EAGER_BENCH],
+           "plain": ["-c", PLAIN_BENCH]}[mode]
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, *cmd, "--cache", cache],
@@ -2435,8 +2677,8 @@ def _bench_child(cache, plain=False) -> dict:
         timeout=BENCH_TIMEOUT_S,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"phase_bench: the bench{' (plain filter)' if plain else ''} "
-                           f"exited {proc.returncode}:\n{proc.stderr[-8000:]}")
+        raise RuntimeError(f"phase_bench: the bench ({mode}) exited {proc.returncode}:\n"
+                           f"{proc.stderr[-8000:]}")
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     line["phase_s"] = time.perf_counter() - t0
     return line
@@ -2449,10 +2691,12 @@ def phase_bench() -> dict:
     cached in a temporary directory. Returns its last line's dict; raises
     unless the command exits 0 on the card with every frame of its windows
     (108) valid, no pair dropped, the ATE under ``ATE_MAX_M`` and every
-    kernel launched. Then, in turns, the same command with the greedy
-    filter's plain version patched in and once more as it is: their main
-    numbers go under ``plain_filter`` and ``kernel_again``, and the plain
-    run must keep every frame valid and launch no filter kernel."""
+    kernel launched. Then, in turns, the same command with ``_frame_step``
+    run eagerly, with the greedy filter's plain version patched in (eager)
+    and once more as it is: their main numbers go under ``eager``,
+    ``plain_filter`` and ``graph_again``. The eager and the second graph run
+    are held to the same checks, and the plain run must keep every frame
+    valid and launch no greedy-filter kernel."""
     import shutil
     import tempfile
 
@@ -2464,29 +2708,32 @@ def phase_bench() -> dict:
     tmp = tempfile.mkdtemp(prefix="bf_bench_")
     try:
         line = _bench_child(tmp)
-        plain = _bench_child(tmp, plain=True)
+        eager = _bench_child(tmp, "eager")
+        plain = _bench_child(tmp, "plain")
         again = _bench_child(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = line["kernel_launches"]
     bad = []
-    if line["platform"] != "gpu":
-        bad.append(f"platform {line['platform']!r}")
-    if not line["valid_frames"] == line["total_frames"] == n_frames:
-        bad.append(f"{line['valid_frames']} of {line['total_frames']} frames valid")
-    if line["pairs_dropped"] != 0:
-        bad.append(f"{line['pairs_dropped']} pairs dropped")
-    if not line["ate_rmse_cm"] / 100.0 < ATE_MAX_M:
-        bad.append(f"ATE {line['ate_rmse_cm']} cm")
-    if set(launches) != set(kernels.SOURCES) or any(n <= 0 for n in launches.values()):
-        bad.append(f"kernel launches {launches}")
+    for name, run in (("graph", line), ("eager", eager), ("graph again", again)):
+        launches = run["kernel_launches"]
+        if run["platform"] != "gpu":
+            bad.append(f"{name}: platform {run['platform']!r}")
+        if not run["valid_frames"] == run["total_frames"] == n_frames:
+            bad.append(f"{name}: {run['valid_frames']} of {run['total_frames']} frames valid")
+        if run["pairs_dropped"] != 0:
+            bad.append(f"{name}: {run['pairs_dropped']} pairs dropped")
+        if not run["ate_rmse_cm"] / 100.0 < ATE_MAX_M:
+            bad.append(f"{name}: ATE {run['ate_rmse_cm']} cm")
+        if set(launches) != set(kernels.SOURCES) or any(n <= 0 for n in launches.values()):
+            bad.append(f"{name}: kernel launches {launches}")
     if plain["valid_frames"] != n_frames or plain["kernel_launches"]["kabsch_filter"]:
         bad.append(f"plain filter run: {plain['valid_frames']} valid, launches "
                    f"{plain['kernel_launches']}")
     if bad:
         raise AssertionError(f"phase_bench: {'; '.join(bad)}: {json.dumps(line)}")
+    line["eager"] = {k: eager[k] for k in BENCH_KEYS}
     line["plain_filter"] = {k: plain[k] for k in BENCH_KEYS}
-    line["kernel_again"] = {k: again[k] for k in BENCH_KEYS}
+    line["graph_again"] = {k: again[k] for k in BENCH_KEYS}
     return line
 
 
@@ -2516,6 +2763,7 @@ def main() -> int:
     app = AppConfig()
     kern = phase_kernels(dev, seq, noisy, gt, app)
     kab = phase_kabsch(dev, seq, app)
+    sa = phase_surface_area(dev, seq, app)
     sl = phase_slice(dev, seq, noisy, gt, app)
     prof = phase_profile(dev, seq, noisy, gt, app)
     t0 = time.perf_counter()
@@ -2594,6 +2842,25 @@ def main() -> int:
             e["bound_ms" + sfx], e["bound_by" + sfx] = k["bound"]
         return e
 
+    def surface_area_entry():
+        ks = [sa[str(n)] for n in KABSCH_PAIRS]
+        e = {
+            # its main path is the per-frame path: phase_frontend's graph run
+            **launches("surface_area", fe["launches"]["surface_area"]),
+            "max_abs_err": max(k["max_abs_err"] for k in ks),
+            "mismatching_pairs": sum(k["mismatching_pairs"] for k in ks),
+            "ill_posed_images": sum(k["ill_posed_images"] for k in ks),
+            # no single PyTorch call computes the filter; eigh_ms is the
+            # batched torch.linalg.eigh of the same covariances
+            "library_ms": None,
+        }
+        for n, k in zip(KABSCH_PAIRS, ks):
+            sfx = "" if n == KABSCH_PAIRS[0] else f"_{n}"
+            for key in ("ms", "plain_ms", "kernel_ms", "eigh_ms", "pairs", "kept_pairs"):
+                e[key + sfx] = k[key]
+            e["bound_ms" + sfx], e["bound_by" + sfx] = k["bound"]
+        return e
+
     big = cap["large_table"]["checks"]
     kernels_line = {"kernels": [
         entry("tsdf_prepare", "prepare"),
@@ -2605,6 +2872,7 @@ def main() -> int:
                                                      "plain_ms", "bound", "max_abs_err")}
                          for k, c in big.items()}},
         kabsch_entry(),
+        surface_area_entry(),
     ]}
     for e in kernels_line["kernels"]:
         e["ptxas"] = ptxas.get(e["name"], [])

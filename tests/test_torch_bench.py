@@ -138,7 +138,7 @@ def test_replay_leaves_the_engine_as_it_was(port_run):
     assert eng._build_reintegrate_rows.__func__ is BundleFusion._build_reintegrate_rows
     assert {"dev_tsdf", "dev_tsdf_rows", "dev_frame_step"} <= set(line["stage_dev_ms"])
     assert line["kernel_launches"] == {"tsdf_prepare": 0, "tsdf_cull": 0, "tsdf_apply": 0,
-                                       "kabsch_filter": 0}
+                                       "kabsch_filter": 0, "surface_area": 0}
     assert line["link_1p5mb_ms"] == [None, None] and line["peak_mem_gb"] is None
 
 

@@ -33,6 +33,16 @@ decides one way on the card and another on the CPU (float32 rounding decides
 it) must get one of its two answers. Packed several to a CTA (650 pairs), each
 pair's results are the bits it gets in a batch of 130.
 
+The surface-area filter's kernel is held against its plain version on the
+same real matches (with the greedy kernel's inlier masks) at 10, 64 and 640
+pairs and on the edge cases of ``tests/torch_surface_area_cases.py``: areas
+within 1e-5 or 1e-4 relative and keep flags equal where the reference is
+well-posed, two calls bit for bit and none waiting. One eager
+``_frame_step`` runs under ``set_sync_debug_mode("error")``, and 22 frames
+with two boundaries through ``process_frame`` replaying the captured graphs
+equal the same frames run eagerly bit for bit (poses, flags, the window
+after every frame), with the same kernel launches.
+
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
 bitwise; the cull a superset of the rows the plain full sweep changes; the
@@ -693,3 +703,166 @@ def test_kabsch_kernel_pairs_do_not_depend_on_their_neighbours(setup):
             assert torch.equal(tiled[k].view(torch.int32), want.view(torch.int32)), k
         else:
             assert torch.equal(tiled[k], want), k
+
+
+# ---------------------------------------------------------------------------
+# the surface-area filter's kernel, and _frame_step as captured graphs
+# ---------------------------------------------------------------------------
+
+SA_THRESH = 0.032
+
+
+def _area_outputs(out):
+    return tuple(x.cpu().numpy() for x in out)
+
+
+def _surface_area_inputs(args):
+    """The surface-area filter's inputs as ``match_and_filter`` hands them
+    over: the raw matches' points and the greedy filter's inlier mask."""
+    from bundlefusion_tpu_torch.ops import filters
+
+    kf = filters.kabsch_filter(*args, *KABSCH_ARGS)
+    return args[0], args[1], kf["inlier_mask"]
+
+
+@pytest.mark.parametrize("pairs", [10, 64, 640], ids=["per_frame", "global", "global_640"])
+def test_surface_area_kernel_matches_plain_on_real_matches(real_matches, pairs):
+    from bundlefusion_tpu_torch.ops import filters
+    from torch_surface_area_cases import compare   # tests/ is on the path of every test file
+
+    last, pool = real_matches
+    idx = torch.arange(pairs, device=pool[0].device) % pool[0].shape[0]
+    args = _surface_area_inputs(last if pairs == 10 else [a[idx].contiguous() for a in pool])
+    before = kernels.launch_counts["surface_area"]
+    got = filters.surface_area_filter(*args, SA_THRESH)
+    assert kernels.launch_counts["surface_area"] == before + 1
+    want = filters.surface_area_filter_ref(*args, SA_THRESH)
+    assert kernels.launch_counts["surface_area"] == before + 1
+    torch.cuda.synchronize()
+    arrays = tuple(a.cpu().numpy() for a in args)
+    compare(_area_outputs(got), _area_outputs(want), arrays)
+    assert int(got[0].sum()) >= pairs // 2
+
+
+@pytest.mark.parametrize("case", ["random", "all_zero_mask", "one_to_three_inliers",
+                                  "collinear_and_coplanar", "duplicates", "nan_inf",
+                                  "near_threshold", "equal_eigenvalues"])
+def test_surface_area_kernel_matches_plain_on_edge_cases(setup, case):
+    from bundlefusion_tpu_torch.ops import filters
+    from torch_surface_area_cases import CASES, compare
+
+    arrays, check = CASES[case]()
+    args = [torch.from_numpy(np.array(a)).cuda() for a in arrays]
+    got = _area_outputs(filters.surface_area_filter(*args, SA_THRESH))
+    want = _area_outputs(filters.surface_area_filter_ref(*args, SA_THRESH))
+    check(got)
+    compare(got, want, arrays)
+
+
+def test_surface_area_kernel_twice_bitwise_without_a_wait(real_matches):
+    from bundlefusion_tpu_torch.ops import filters
+
+    _, pool = real_matches
+    args = _surface_area_inputs(pool)
+    filters.surface_area_filter(*args, SA_THRESH)   # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = filters.surface_area_filter(*args, SA_THRESH)
+        b = filters.surface_area_filter(*args, SA_THRESH)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1:], b[1:]):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+GRAPH_FRAMES = 22   # windows of 10: boundaries at frames 10 and 20
+
+
+def test_frame_step_waits_for_nothing(setup):
+    """One eager ``_frame_step`` (frame 3 of the 12-frame orbit, matched
+    against the 3 before it) under ``set_sync_debug_mode("error")``: no
+    operator of the step makes the host wait for the card."""
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+
+    seq = make_sequence_wire(12, intr=default_intrinsics(160, 120))
+    eng = _small_engine("cuda", submap_size=10)
+    for f in range(3):
+        eng._frame_step(seq["depth"][f], seq["color"][f], f, f)
+    depth, color = eng.upload_frame(seq["depth"][3], seq["color"][3])
+    slot = torch.full((1,), 3, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T, valid = eng._frame_step(depth, color, 3, slot)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(valid) and torch.isfinite(T).all()
+
+
+def _window_snapshot(eng):
+    """The window's state on the host: keys, cache, rel, corrs, validity."""
+    import dataclasses
+
+    snap = {"rel": eng.local.rel.cpu(), "valid": eng.local.valid.cpu()}
+    for part in ("keys", "cache", "corrs"):
+        obj = getattr(eng.local, part)
+        snap.update({f"{part}.{f.name}": getattr(obj, f.name).cpu()
+                     for f in dataclasses.fields(obj)})
+    return snap
+
+
+def _graph_or_eager_run(eager):
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+
+    seq = make_sequence_wire(GRAPH_FRAMES, intr=default_intrinsics(160, 120))
+    eng = _small_engine("cuda", submap_size=10)
+    eng._eager_frame_step = eager
+    eng.warmup()
+    assert len(eng._graphs) == (0 if eager else eng.S)
+    for k in kernels.launch_counts:
+        kernels.launch_counts[k] = 0
+    poses, snaps = [], []
+    for f in range(GRAPH_FRAMES):
+        out = eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+        poses.append((out["pose"].cpu(), out["valid"].cpu()))
+        snaps.append(_window_snapshot(eng))
+    launches = dict(kernels.launch_counts)
+    eng.finish(extra_solves=1)
+    return eng, poses, snaps, launches
+
+
+@pytest.fixture(scope="module")
+def graph_and_eager_runs(setup):
+    return _graph_or_eager_run(eager=False), _graph_or_eager_run(eager=True)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else (
+        t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+
+
+def test_graph_replay_equals_eager_bitwise(graph_and_eager_runs):
+    """22 frames and 2 boundaries, process_frame replaying the captured
+    graphs and running the step eagerly: every frame's pose and validity,
+    and the window after it, are the same bits."""
+    (g_eng, g_poses, g_snaps, _), (e_eng, e_poses, e_snaps, _) = graph_and_eager_runs
+    # two boundaries, and the trailing window that finish() solves
+    assert g_eng.num_keyframes == e_eng.num_keyframes == 3
+    assert g_eng.frame_valid == e_eng.frame_valid and all(g_eng.frame_valid)
+    for f, ((gT, gv), (eT, ev)) in enumerate(zip(g_poses, e_poses)):
+        assert torch.equal(_bits(gT), _bits(eT)) and torch.equal(gv, ev), f
+    for f, (gs, es) in enumerate(zip(g_snaps, e_snaps)):
+        for k in gs:
+            assert torch.equal(_bits(gs[k]), _bits(es[k])), (f, k)
+    np.testing.assert_array_equal(g_eng.trajectory(), e_eng.trajectory())
+
+
+def test_launch_counts_under_replay_equal_eager(graph_and_eager_runs):
+    (_, _, _, g_launches), (_, _, _, e_launches) = graph_and_eager_runs
+    assert g_launches == e_launches
+    # one filter launch of each kind per frame with a live pair, plus the
+    # boundaries' global matches
+    assert g_launches["kabsch_filter"] == g_launches["surface_area"] >= GRAPH_FRAMES - 1

@@ -54,8 +54,8 @@ def _keys_np(store, slots):
     out = {}
     for f in KEY_FIELDS:
         x = getattr(store, f)[slots]
-        out[f] = x.float().numpy() if isinstance(x, torch.Tensor) and x.is_floating_point() \
-            else np.asarray(x.astype(np.float32) if f == "desc" else x)
+        out[f] = np.array(x.float()) if isinstance(x, torch.Tensor) and x.is_floating_point() \
+            else np.array(x.astype(np.float32) if f == "desc" else x)
     return out
 
 
