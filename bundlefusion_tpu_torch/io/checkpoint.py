@@ -196,14 +196,15 @@ def load_engine(path: str, mesh=None, device=None):
              if getattr(eng, name) is not None}
     eng.glob = global_state_from_numpy(_nested(eng.glob, trees["glob"]), dev)
     if eng._is_root:
-        # the window, the frame archive and the anchor pose are copied into
-        # the engine's own storages: its frame graphs read them by address
+        # the window, the frame archive, the anchor pose and the voxel table
+        # are copied into the engine's own storages: its captured programs
+        # read them by address
         copy_into(eng.local, local_state_from_numpy(_nested(eng.local, trees["local"]), dev))
         store = trees["store"]
         eng.store.depth_mm.view(torch.int16).copy_(
             torch.from_numpy(store["depth_mm"].astype(np.uint16).view(np.int16)))
         eng.store.color.copy_(torch.from_numpy(store["color"].astype(np.uint8)))
-        eng.table = table_from_numpy(trees["table"], dev)
+        copy_into(eng.table, table_from_numpy(trees["table"], "cpu"))
 
     eng.submap_base.copy_(torch.as_tensor(data["submap_base"], dtype=torch.float32))
     eng.keyframe_valid = data["keyframe_valid"].copy()

@@ -122,6 +122,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
 
 def _check_cuda(t: torch.Tensor, dtype, what: str, shape=None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{what}: need a CUDA {dtype} tensor, got {type(t).__name__}")
     if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor, got "
                          f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
@@ -129,16 +131,14 @@ def _check_cuda(t: torch.Tensor, dtype, what: str, shape=None) -> None:
         raise ValueError(f"{what}: need shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _host_op_arrays(signs, imgs, n_imgs: int):
-    """Per-op signs and image indices as C arrays: they travel to the card
-    inside the kernel's arguments, so no copy is enqueued for them."""
-    n = len(signs)
-    if len(imgs) != n or not 0 < n <= MAX_OPS:
-        raise ValueError(f"need 1..{MAX_OPS} ops with one image index each, got "
-                         f"{n} signs and {len(imgs)} image indices")
-    if any(not 0 <= int(i) < n_imgs for i in imgs):
-        raise ValueError(f"img_of_op {list(imgs)} out of range for {n_imgs} images")
-    return (ctypes.c_float * n)(*map(float, signs)), (ctypes.c_int * n)(*map(int, imgs))
+def _check_op_table(signs, imgs, ops: int) -> None:
+    """The op table the TSDF kernels read on the card: ``signs`` float32
+    [OPS] and ``imgs`` int32 [OPS]. Its values are not read here: an op
+    whose image index is out of range is skipped on the card."""
+    if not 0 < ops <= MAX_OPS:
+        raise ValueError(f"need 1..{MAX_OPS} ops, got {ops}")
+    _check_cuda(signs, torch.float32, "signs", (ops,))
+    _check_cuda(imgs, torch.int32, "imgs", (ops,))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -173,26 +173,27 @@ def tsdf_prepare_launch(depths, colors):
 def tsdf_cull_launch(table, w2c, signs, imgs, img_dmax, intr, params, H, W):
     """Launch ``tsdf_cull.cu`` over every payload row of ``table``.
 
-    ``w2c`` [OPS, 3, 4] world-to-camera rows per op; ``signs`` / ``imgs`` host
-    sequences; ``img_dmax`` [IMGS] from the image pass. Returns ``rows``
+    ``w2c`` [OPS, 3, 4] world-to-camera rows per op; ``signs`` float32 /
+    ``imgs`` int32 [OPS] the op table, on the card; ``img_dmax`` [IMGS] from
+    the image pass. Nothing is read back. Returns ``rows``
     int32 [N] and ``masks`` int64 [N], of which the first ``n_rows`` (an
     int32 tensor [1], on the card) entries are the listed rows, in no
     fixed order, and the bit masks of the ops that can touch each."""
     lib = load("tsdf_cull")
-    ops = len(signs)
+    ops = w2c.shape[0]
     n = table.num_blocks
     _check_cuda(table.slot_keys, torch.int32, "slot_keys")
     _check_cuda(w2c, torch.float32, "w2c", (ops, 3, 4))
     _check_cuda(img_dmax, torch.float32, "img_dmax")
-    c_signs, c_imgs = _host_op_arrays(signs, imgs, img_dmax.shape[0])
+    _check_op_table(signs, imgs, ops)
     dev = table.slot_keys.device
     rows = torch.empty((n,), dtype=torch.int32, device=dev)
     masks = torch.empty((n,), dtype=torch.int64, device=dev)
     n_rows = torch.empty((1,), dtype=torch.int32, device=dev)
     _raise_on(lib.bf_tsdf_cull(
         table.slot_keys.data_ptr(), w2c.data_ptr(), img_dmax.data_ptr(),
-        rows.data_ptr(), masks.data_ptr(), n_rows.data_ptr(), c_signs, c_imgs,
-        int(n), int(ops), int(img_dmax.shape[0]), int(H), int(W),
+        signs.data_ptr(), imgs.data_ptr(), rows.data_ptr(), masks.data_ptr(),
+        n_rows.data_ptr(), int(n), int(ops), int(img_dmax.shape[0]), int(H), int(W),
         intr.fx, intr.fy, intr.cx, intr.cy, 8 * params.voxel_size,
         params.truncation, params.truncation_scale,
         min(params.depth_max, params.max_integration_distance),
@@ -208,11 +209,11 @@ def tsdf_apply_launch(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr
     to each row the ops whose bit its mask holds, in array order.
 
     ``packed`` [IMGS, H, W, 4] are the image pass's samples, ``w2c``
-    [OPS, 3, 4] the world-to-camera rows, ``signs`` / ``imgs`` host
-    sequences. ``grid_ctas`` sets the size of the persistent grid; 0 takes
-    as many CTAs as the card holds at once."""
+    [OPS, 3, 4] the world-to-camera rows, ``signs`` float32 / ``imgs`` int32
+    [OPS] the op table, on the card. ``grid_ctas`` sets the size of the
+    persistent grid; 0 takes as many CTAs as the card holds at once."""
     lib = load("tsdf_apply")
-    ops = len(signs)
+    ops = w2c.shape[0]
     for t, dt, what in (
         (table.sdf, torch.float32, "sdf"), (table.weight, torch.float32, "weight"),
         (table.color, torch.float32, "color"), (rows, torch.int32, "rows"),
@@ -227,13 +228,13 @@ def tsdf_apply_launch(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr
         raise ValueError("tsdf_apply: payload rows must be 512 / 1536 wide")
     if masks.shape[0] < rows.shape[0] or n_rows.numel() != 1:
         raise ValueError("tsdf_apply: one mask per listed row and one row count")
+    _check_op_table(signs, imgs, ops)
     n_imgs, H, W, _ = packed.shape
-    c_signs, c_imgs = _host_op_arrays(signs, imgs, n_imgs)
     _raise_on(lib.bf_tsdf_apply(
         table.sdf.data_ptr(), table.weight.data_ptr(), table.color.data_ptr(),
         rows.data_ptr(), masks.data_ptr(), n_rows.data_ptr(),
-        table.slot_keys.data_ptr(), packed.data_ptr(), w2c.data_ptr(), c_signs, c_imgs,
-        int(ops), int(n_imgs), int(H), int(W), int(grid_ctas),
+        table.slot_keys.data_ptr(), packed.data_ptr(), w2c.data_ptr(), signs.data_ptr(),
+        imgs.data_ptr(), int(ops), int(n_imgs), int(H), int(W), int(grid_ctas),
         intr.fx, intr.fy, intr.cx, intr.cy, params.voxel_size,
         8 * params.voxel_size, params.truncation, params.truncation_scale,
         params.depth_min, min(params.depth_max, params.max_integration_distance),

@@ -37,8 +37,11 @@
 //   one load from L1 / L2 (an image is 1.2 MB).
 // - Fewer instructions per op: the mask is walked in 32-bit halves, the pixel
 //   index is 32-bit, and the voxel's offset inside the block is hoisted.
-// - Per-op world-to-camera rows are staged in shared memory once per CTA;
-//   signs and image indices come in the kernel's arguments.
+// - The op table is staged in shared memory once per CTA of the persistent
+//   grid: each op's world-to-camera rows, sign and image index, all read from
+//   device memory. Nothing of it travels in the kernel's arguments, so a launch
+//   captured in a CUDA graph takes the frame's new signs (a validity flag, a
+//   re-integration row's mode) and poses at every replay.
 // Nothing else of the TPU design carries over: no one-hot MXU sampling
 // windows, no DMA double-buffering, no 128-lane geometry rows.
 //
@@ -84,8 +87,6 @@ struct ApplyParams {
     float depth_max;     // min(depth_max, max_integration_distance)
     float w_sample;
     float w_max;
-    float sign[MAX_OPS];
-    int img[MAX_OPS];
 };
 
 __global__ void __launch_bounds__(BLOCK_VOL, APPLY_MIN_CTAS)
@@ -94,9 +95,19 @@ tsdf_apply_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                   const unsigned long long* __restrict__ masks,
                   const int* __restrict__ n_rows, const int* __restrict__ slot_keys,
                   const float4* __restrict__ packed, const float* __restrict__ w2c,
+                  const float* __restrict__ signs, const int* __restrict__ imgs,
                   ApplyParams p) {
     __shared__ float s_m[MAX_OPS * 12];  // per op the 3x4 world-to-camera rows
+    __shared__ float s_sign[MAX_OPS];    // 0 also for an op whose image is out of range
+    __shared__ int s_img[MAX_OPS];
     for (int i = threadIdx.x; i < p.ops * 12; i += blockDim.x) s_m[i] = w2c[i];
+    for (int o = threadIdx.x; o < p.ops; o += blockDim.x) {
+        const int img = imgs[o];
+        // an out-of-range index would read outside the images: the op is skipped
+        const bool ok = img >= 0 && img < p.imgs;
+        s_sign[o] = ok ? signs[o] : 0.0f;
+        s_img[o] = ok ? img : 0;
+    }
     __syncthreads();
 
     const int t = threadIdx.x;
@@ -157,12 +168,9 @@ tsdf_apply_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                 const int o = half * 32 + __ffs((int)bits) - 1;
                 bits &= bits - 1u;
                 if (o >= p.ops) break;
-                const float sign = p.sign[o];
+                const float sign = s_sign[o];
                 if (sign == 0.0f) continue;
-                const int img = p.img[o];
-                // the wrapper rejects such ops; this keeps a bad argument from
-                // reading outside the images
-                if (img < 0 || img >= p.imgs) continue;
+                const int img = s_img[o];
                 const float* m = s_m + o * 12;
                 const float px = affine_row(m, wx, wy, wz);
                 const float py = affine_row(m + 4, wx, wy, wz);
@@ -223,20 +231,20 @@ extern "C" int bf_tsdf_apply_wave() {
 
 extern "C" int bf_tsdf_apply(float* sdf, float* weight, float* color, const int* rows,
                              const long long* masks, const int* n_rows, const int* slot_keys,
-                             const float* packed, const float* w2c, const float* signs_host,
-                             const int* imgs_host, int ops, int imgs, int H, int W,
+                             const float* packed, const float* w2c, const float* signs,
+                             const int* imgs, int ops, int n_imgs, int H, int W,
                              int grid_ctas, float fx, float fy, float cx, float cy,
                              float voxel_size, float block_extent, float truncation,
                              float truncation_scale, float depth_min, float depth_max,
                              float w_sample, float w_max, void* stream) {
-    if (ops > MAX_OPS || ops <= 0 || imgs <= 0 || H <= 0 || W <= 0 ||
-        (long long)imgs * H * W >= (1ll << 31))
+    if (ops > MAX_OPS || ops <= 0 || n_imgs <= 0 || H <= 0 || W <= 0 ||
+        (long long)n_imgs * H * W >= (1ll << 31))
         return (int)cudaErrorInvalidValue;
     if (grid_ctas <= 0) grid_ctas = bf_tsdf_apply_wave();
     if (grid_ctas <= 0) return (int)cudaErrorInvalidConfiguration;
     ApplyParams p;
     p.ops = ops;
-    p.imgs = imgs;
+    p.imgs = n_imgs;
     p.H = H;
     p.W = W;
     p.fx = fx;
@@ -251,12 +259,8 @@ extern "C" int bf_tsdf_apply(float* sdf, float* weight, float* color, const int*
     p.depth_max = depth_max;
     p.w_sample = w_sample;
     p.w_max = w_max;
-    for (int o = 0; o < MAX_OPS; ++o) {
-        p.sign[o] = o < ops ? signs_host[o] : 0.0f;
-        p.img[o] = o < ops ? imgs_host[o] : 0;
-    }
     tsdf_apply_kernel<<<(unsigned)grid_ctas, BLOCK_VOL, 0, (cudaStream_t)stream>>>(
         sdf, weight, color, rows, (const unsigned long long*)masks, n_rows, slot_keys,
-        (const float4*)packed, w2c, p);
+        (const float4*)packed, w2c, signs, imgs, p);
     return (int)cudaGetLastError();
 }

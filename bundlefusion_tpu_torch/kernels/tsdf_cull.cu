@@ -11,7 +11,9 @@
 // bound, dm + truncation + truncation_scale * dm with dm the smaller of the
 // depth limit and the op image's largest sampled depth (read from the card:
 // the image pass left it there); a block that straddles the camera plane is
-// kept. Arithmetic follows the plain version's order with rounded products,
+// kept. The op table (each op's sign and image index) is read from device
+// memory too, so a launch captured in a CUDA graph takes new values at each
+// replay; an op whose image index is out of range touches no block. Arithmetic follows the plain version's order with rounded products,
 // but the test has half a voxel of margin, so the list need not match row for
 // row: it must hold every row the sweep would change.
 //
@@ -62,26 +64,28 @@ struct CullParams {
     float truncation;
     float truncation_scale;
     float depth_max;     // min(depth_max, max_integration_distance)
-    float sign[MAX_OPS];
-    int img[MAX_OPS];
 };
 
 __global__ void __launch_bounds__(CULL_THREADS)
 tsdf_cull_kernel(const int* __restrict__ slot_keys, const float* __restrict__ w2c,
-                 const float* __restrict__ img_dmax, int* __restrict__ rows,
+                 const float* __restrict__ img_dmax, const float* __restrict__ signs,
+                 const int* __restrict__ imgs, int* __restrict__ rows,
                  unsigned long long* __restrict__ masks, int* __restrict__ n_rows,
                  CullParams p) {
     __shared__ float s_m[MAX_OPS * 12];  // per op the 3x4 world-to-camera rows
     __shared__ float s_zmax[MAX_OPS];
+    __shared__ bool s_on[MAX_OPS];       // sign != 0 and the image index in range
     for (int i = threadIdx.x; i < p.ops * 12; i += blockDim.x) s_m[i] = w2c[i];
     for (int o = threadIdx.x; o < p.ops; o += blockDim.x) {
-        const int img = p.img[o];
-        float zmax = -1.0f;  // an op the wrapper would reject touches nothing
-        if (img >= 0 && img < p.imgs) {
+        const int img = imgs[o];
+        const bool on = signs[o] != 0.0f && img >= 0 && img < p.imgs;
+        float zmax = -1.0f;
+        if (on) {
             const float dm = fminf(img_dmax[img], p.depth_max);
             zmax = __fadd_rn(__fadd_rn(dm, p.truncation), __fmul_rn(p.truncation_scale, dm));
         }
         s_zmax[o] = zmax;
+        s_on[o] = on;
     }
     __syncthreads();
 
@@ -100,7 +104,7 @@ tsdf_cull_kernel(const int* __restrict__ slot_keys, const float* __restrict__ w2
         Y[1] = __fadd_rn(Y[0], p.block_extent);
         Z[1] = __fadd_rn(Z[0], p.block_extent);
         for (int o = 0; o < p.ops; ++o) {
-            if (p.sign[o] == 0.0f) continue;
+            if (!s_on[o]) continue;
             const float* m = s_m + o * 12;
             float umin = 3.0e38f, umax = -3.0e38f, vmin = 3.0e38f, vmax = -3.0e38f;
             float zmin = 3.0e38f, zmaxc = -3.0e38f;
@@ -148,16 +152,16 @@ tsdf_cull_kernel(const int* __restrict__ slot_keys, const float* __restrict__ w2
 }
 
 extern "C" int bf_tsdf_cull(const int* slot_keys, const float* w2c, const float* img_dmax,
-                            int* rows, long long* masks, int* n_rows,
-                            const float* signs_host, const int* imgs_host, int n, int ops,
-                            int imgs, int H, int W, float fx, float fy, float cx, float cy,
+                            const float* signs, const int* imgs, int* rows, long long* masks,
+                            int* n_rows, int n, int ops,
+                            int n_imgs, int H, int W, float fx, float fy, float cx, float cy,
                             float block_extent, float truncation, float truncation_scale,
                             float depth_max, void* stream) {
-    if (ops > MAX_OPS || ops <= 0 || n < 0 || imgs <= 0) return (int)cudaErrorInvalidValue;
+    if (ops > MAX_OPS || ops <= 0 || n < 0 || n_imgs <= 0) return (int)cudaErrorInvalidValue;
     CullParams p;
     p.n = n;
     p.ops = ops;
-    p.imgs = imgs;
+    p.imgs = n_imgs;
     p.fx = fx;
     p.fy = fy;
     p.cx = cx;
@@ -168,10 +172,6 @@ extern "C" int bf_tsdf_cull(const int* slot_keys, const float* w2c, const float*
     p.truncation = truncation;
     p.truncation_scale = truncation_scale;
     p.depth_max = depth_max;
-    for (int o = 0; o < MAX_OPS; ++o) {
-        p.sign[o] = o < ops ? signs_host[o] : 0.0f;
-        p.img[o] = o < ops ? imgs_host[o] : 0;
-    }
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t err = cudaMemsetAsync(n_rows, 0, sizeof(int), st);
     if (err != cudaSuccess) return (int)err;
@@ -179,6 +179,6 @@ extern "C" int bf_tsdf_cull(const int* slot_keys, const float* w2c, const float*
     // of the wrapper is one launch
     const unsigned grid = n > 0 ? (unsigned)((n + CULL_THREADS - 1) / CULL_THREADS) : 1u;
     tsdf_cull_kernel<<<grid, CULL_THREADS, 0, st>>>(
-        slot_keys, w2c, img_dmax, rows, (unsigned long long*)masks, n_rows, p);
+        slot_keys, w2c, img_dmax, signs, imgs, rows, (unsigned long long*)masks, n_rows, p);
     return (int)cudaGetLastError();
 }

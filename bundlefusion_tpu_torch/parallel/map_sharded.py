@@ -31,7 +31,7 @@ import torch
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
 from bundlefusion_tpu_torch.parallel.ba_sharded import shard_rows
 from bundlefusion_tpu_torch.parallel.mesh import Mesh, all_gather
-from bundlefusion_tpu_torch.tsdf.apply_ops import _host_ops, apply_tsdf_ops, apply_tsdf_ops_rows
+from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops, apply_tsdf_ops_rows
 from bundlefusion_tpu_torch.tsdf.integrate import TsdfParams
 from bundlefusion_tpu_torch.tsdf.table import VoxelBlockTable
 
@@ -67,10 +67,9 @@ def make_sharded_apply(mesh: Mesh, num_blocks: int, intr: CameraIntrinsics, para
         if table.sdf.is_cuda:
             # the three CUDA kernels over this rank's rows
             return apply_tsdf_ops(table, depths, colors, poses, signs, img_of_op, intr, params)
-        signs, imgs = _host_ops(signs, img_of_op, poses.shape[0], depths.shape[0])
         sdf, w, col = apply_tsdf_ops_rows(
             table.slot_keys[:Nl], table.sdf[:Nl], table.weight[:Nl], table.color[:Nl],
-            depths, colors, poses, signs, imgs, intr, params)
+            depths, colors, poses, signs, img_of_op, intr, params)
         table.sdf[:Nl] = sdf
         table.weight[:Nl] = w
         table.color[:Nl] = col

@@ -51,10 +51,16 @@ its compiled ``frame_step``: on the card it is captured once per window slot
 as a CUDA graph (``_build_programs``, run by ``warmup`` or on a slot's
 first frame) and each frame replays its slot's graph, which reads and writes
 the window, the frame archive and the window's anchor pose in place, at the
-addresses it was captured with, and waits for nothing. Every other step runs
-eagerly on the engine's device, state is updated in place, and a boundary's
-pack is read back at the end of the frame that dispatched it. What the host
-scheduler ends up with is the same.
+addresses it was captured with, and waits for nothing. The fusion programs
+(``_tsdf_fast``, ``_tsdf_rows`` and the render, the counterparts of the
+compiled ``tsdf_fast`` / ``tsdf_rows`` / ``_render``) are captured the same
+way, one graph each, and replayed on the frame graph's outputs: the pose and
+validity never leave the card, the op signs are computed there, and a frame
+that is not a boundary reads nothing back. The host decides each frame's
+path and re-integration rows from its own scheduler alone. Every other step
+runs eagerly on the engine's device, state (the voxel table too) is updated
+in place, and a boundary's pack is read back at the end of the frame that
+dispatched it. What the host scheduler ends up with is the same.
 """
 
 from __future__ import annotations
@@ -267,6 +273,10 @@ class BundleFusion:
     # greedy filter's plain version, which reads the card and cannot be
     # captured.
     _eager_frame_step = False
+    # Private switch: run the fusion programs (the TSDF dispatch's fast and
+    # rows paths, the per-frame render) eagerly on the card instead of
+    # replaying their captured graphs. Only for comparing the two.
+    _eager_fusion = False
 
     def __init__(
         self,
@@ -414,6 +424,12 @@ class BundleFusion:
         self._graphs: dict = {}
         self._static: Optional[dict] = None
         self._capturing = False
+        # the fusion programs: name ("fast", "rows", "render") -> (CUDA graph,
+        # its kernel launches, the state addresses it was captured with, its
+        # outputs), and how often one was captured again because the paged-key
+        # array grew
+        self._fusion: dict = {}
+        self.fusion_recaptures = 0
         # the serialized device-time replay (the reference's CUDATimer): every
         # ``profile_every``-th frame after frame 0 drains the device and
         # times each stage behind a synchronisation into ``device_timing``;
@@ -597,41 +613,62 @@ class BundleFusion:
         return self.device.type == "cuda" and self._is_root and not self._eager_frame_step
 
     def _state_ptrs(self) -> tuple:
-        """Addresses of every tensor ``_frame_step`` reads or writes that
-        outlives it (the window, the frame archive, the anchor pose)."""
+        """Addresses of every tensor the captured programs read or write
+        that outlives them: the window, the frame archive, the anchor pose
+        (``_frame_step``) and the voxel table (the fusion programs)."""
         ts = [self.submap_base, self.local.rel, self.local.valid,
               self.store.depth_mm, self.store.color]
-        for part in (self.local.keys, self.local.cache, self.local.corrs):
+        for part in (self.local.keys, self.local.cache, self.local.corrs, self.table):
             ts += [getattr(part, f.name) for f in dataclasses.fields(part)]
         return tuple(t.data_ptr() for t in ts)
 
+    def _fusion_ptrs(self) -> tuple:
+        """``_state_ptrs`` and, last, the paged-key array's address (0 with
+        paging off): the one that may move, when the array grows."""
+        blocked = self._blocked_dev
+        return self._state_ptrs() + (0 if blocked is None else blocked.data_ptr(),)
+
     def _build_programs(self) -> None:
-        """Capture ``_frame_step`` for every window slot 0..S-1 (the
-        counterpart of the JAX engine's ``_build_programs``) against the
-        engine's own state, as ``warmup`` has it: each slot first runs once
-        eagerly on a zero frame on the capture stream (kernel libraries,
-        library handles and workspaces exist before the capture), then is
-        captured. The state is reset in place after."""
+        """Capture the engine's programs (the counterpart of the JAX
+        engine's ``_build_programs``) against its own state, as ``warmup``
+        has it: ``_frame_step`` for every window slot 0..S-1 (with
+        :meth:`_graphs_on`), each first run once eagerly on a zero frame on
+        the capture stream (kernel libraries, library handles and
+        workspaces exist before the capture), then captured; the state is
+        reset in place after. Then the fusion programs (with
+        :meth:`_fusion_graphs_on`), each behind one eager run on inputs that
+        change nothing: an invalid current frame, the (zero) scratch slot
+        of the archive, re-integration rows that all skip."""
         st = self._static_buffers()
-        st["depth"].zero_()
-        st["color"].zero_()
-        self._graphs.clear()
-        # the zero frames are set-up work: the engine's stage log skips them
-        log, self.timing = self.timing, TimingLog(enabled=False)
-        try:
-            for slot in range(self.S):
-                self._capture_slot(slot, self.frame_cap)
-        finally:
-            self.timing = log
-        # the zero frames wrote the window and the archive's scratch slot
-        copy_into(self.local, self._fresh_local())
-        self.store.depth_mm.view(torch.int16)[self.frame_cap] = 0
-        self.store.color[self.frame_cap] = 0
+        if self._graphs_on():
+            st["depth"].zero_()
+            st["color"].zero_()
+            self._graphs.clear()
+            # the zero frames are set-up work: the engine's stage log skips them
+            log, self.timing = self.timing, TimingLog(enabled=False)
+            try:
+                for slot in range(self.S):
+                    self._capture_slot(slot, self.frame_cap)
+            finally:
+                self.timing = log
+            # the zero frames wrote the window and the archive's scratch slot
+            copy_into(self.local, self._fresh_local())
+            self.store.depth_mm.view(torch.int16)[self.frame_cap] = 0
+            self.store.color[self.frame_cap] = 0
+        if self._fusion_graphs_on():
+            skip = np.zeros((REINT_ROWS, 34), np.float32)
+            skip[:, 2:18] = skip[:, 18:34] = np.eye(4, dtype=np.float32).reshape(-1)
+            self._set_fusion_inputs(self.frame_cap, np.eye(4, dtype=np.float32), False, skip)
+            self._fusion.clear()
+            for name in ("fast", "rows", "render"):
+                self._capture_fusion(name)
 
     def _static_buffers(self) -> dict:
         """The programs' static inputs (one wire frame, the archive slot as
-        a device index), static outputs (pose, validity), the capture
-        stream and the graphs' shared memory pool; made once."""
+        a device index, the re-integration rows [R, 34]), static outputs of
+        the frame program, which are the fusion programs' inputs (pose,
+        validity), and on the card the capture stream and the graphs'
+        shared memory pool; made once."""
         if self._static is None:
             h, w, dev = self.intr_input.height, self.intr_input.width, self.device
             self._static = {
@@ -640,9 +677,11 @@ class BundleFusion:
                 "store_slot": torch.zeros((1,), dtype=torch.int64, device=dev),
                 "T_world": torch.zeros((4, 4), dtype=torch.float32, device=dev),
                 "valid": torch.zeros((), dtype=torch.bool, device=dev),
-                "stream": torch.cuda.Stream(dev),
-                "pool": torch.cuda.graph_pool_handle(),
+                "rows": torch.zeros((REINT_ROWS, 34), dtype=torch.float32, device=dev),
             }
+            if dev.type == "cuda":
+                self._static.update(stream=torch.cuda.Stream(dev),
+                                    pool=torch.cuda.graph_pool_handle())
         return self._static
 
     def _step_into_outputs(self, cur_slot: int) -> None:
@@ -652,36 +691,44 @@ class BundleFusion:
         st["T_world"].copy_(T_world)
         st["valid"].copy_(valid)
 
-    def _capture_slot(self, cur_slot: int, store_slot: int) -> None:
-        """Run the frame in the static inputs through ``_frame_step`` once,
-        eagerly on the capture stream, then capture the same step as slot
-        ``cur_slot``'s graph (a capture runs nothing). A capture records
-        the kernel launches of the step without making them: they are
-        taken off ``kernels.launch_counts`` and added back at each replay.
-        A failed capture raises; there is no eager fall-back."""
+    def _capture(self, body, what: str):
+        """Run ``body`` once eagerly on the capture stream (kernel libraries,
+        library handles and workspaces then exist), then capture the same
+        call as a CUDA graph (a capture runs nothing). A capture records the
+        kernel launches without making them: they are taken off
+        ``kernels.launch_counts`` and added back at each replay. Returns (the
+        eager run's result, the graph, its launches, the captured call's
+        result, which a replay rewrites). A failed capture raises; there is
+        no eager fall-back."""
         from bundlefusion_tpu_torch import kernels
 
         st, dev = self._static, self.device
-        st["store_slot"].fill_(store_slot)
         side = st["stream"]
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._step_into_outputs(cur_slot)
+            eager = body()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = dict(kernels.launch_counts)
         self._capturing = True
         try:
             with torch.cuda.graph(graph, pool=st["pool"], stream=side):
-                self._step_into_outputs(cur_slot)
+                out = body()
         except Exception as exc:
-            raise RuntimeError(
-                f"capturing _frame_step for window slot {cur_slot} failed: something in "
-                f"it waits for the card or reads it back") from exc
+            raise RuntimeError(f"capturing {what} failed: something in it waits for the card "
+                               f"or reads it back") from exc
         finally:
             self._capturing = False
             launched = {k: n - before.get(k, 0) for k, n in kernels.launch_counts.items()}
             kernels.launch_counts.update(before)
+        return eager, graph, launched, out
+
+    def _capture_slot(self, cur_slot: int, store_slot: int) -> None:
+        """Run the frame in the static inputs through ``_frame_step`` once,
+        eagerly, then capture the same step as slot ``cur_slot``'s graph."""
+        self._static["store_slot"].fill_(store_slot)
+        _, graph, launched, _ = self._capture(lambda: self._step_into_outputs(cur_slot),
+                                              f"_frame_step for window slot {cur_slot}")
         self._graphs[cur_slot] = (graph, launched, self._state_ptrs())
 
     def _run_frame_step(self, depth_u16, color_u8, cur_slot: int, store_slot: int):
@@ -705,24 +752,99 @@ class BundleFusion:
         else:
             graph, launched, ptrs = entry
             if ptrs != self._state_ptrs():
-                raise RuntimeError("the window, the frame archive or the anchor pose was "
-                                   "replaced after the frame graphs were captured: the engine "
-                                   "updates them in place")
+                raise RuntimeError("the window, the frame archive, the anchor pose or the "
+                                   "voxel table was replaced after the frame graphs were "
+                                   "captured: the engine updates them in place")
             st["store_slot"].fill_(store_slot)
             graph.replay()
             for k, n in launched.items():
                 kernels.launch_counts[k] += n
         return st["T_world"].clone(), st["valid"].clone()
 
-    def _read_pose(self, T_world: torch.Tensor, valid: torch.Tensor):
-        """The frame's one device -> host copy: 17 floats, the pose and the
-        validity flag together. The TSDF dispatch needs ``valid`` on the
-        host (its op signs are host lists) and the trajectory bookkeeping
-        needs the pose. Returns (T_world [4, 4] numpy, valid bool)."""
-        packed = torch.cat([T_world.reshape(16), valid.to(torch.float32).reshape(1)]).cpu()
-        return packed[:16].reshape(4, 4).numpy(), bool(packed[16] > 0.5)
-
     # ------------------------------------------------------------------
+    # the fusion programs: the TSDF dispatch's fast and rows paths and the
+    # per-frame render, on the device's pose and validity (the counterparts
+    # of the JAX engine's jitted tsdf_fast / tsdf_rows / _render)
+    def _fusion_graphs_on(self) -> bool:
+        """Whether the fusion programs replay captured graphs: on the card,
+        on the rank that holds the map, unless switched off."""
+        return self.device.type == "cuda" and self._is_root and not self._eager_fusion
+
+    def _set_fusion_inputs(self, store_slot=None, T_world=None, valid=None,
+                           rows=None) -> None:
+        """Write one dispatch's inputs (those given) into the static buffers
+        the fusion programs read: the archive slot (a host int, or a device index),
+        the pose and validity (device tensors, copied unless they are the
+        buffers themselves, as the frame program's outputs are; or host
+        values) and the re-integration rows [R, 34] (host). Host values go
+        to the card through pinned memory, with no wait; each copy gets a
+        fresh pinned block from PyTorch's caching host allocator, which
+        hands a block out again only once the copy that used it has run."""
+        st = self._static_buffers()
+        for key, val in (("store_slot", store_slot), ("T_world", T_world), ("valid", valid)):
+            dst = st[key]
+            if val is None:
+                continue
+            if isinstance(val, torch.Tensor):
+                if val.data_ptr() != dst.data_ptr():
+                    dst.copy_(val.reshape(dst.shape))
+            elif key == "T_world":
+                dst.copy_(self._pinned(np.asarray(val, np.float32)), non_blocking=True)
+            else:
+                dst.fill_(bool(val) if key == "valid" else int(val))
+        if rows is not None:
+            st["rows"].copy_(self._pinned(np.asarray(rows, np.float32)), non_blocking=True)
+
+    def _pinned(self, arr: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        return host.pin_memory() if self.device.type == "cuda" else host
+
+    def _fusion_body(self, name: str):
+        """Fusion program ``name`` on the static inputs (the render returns
+        its outputs)."""
+        st = self._static
+        if name == "fast":
+            return self._tsdf_fast(st["store_slot"], st["T_world"], st["valid"])
+        if name == "rows":
+            return self._tsdf_rows(st["rows"], st["store_slot"], st["T_world"], st["valid"])
+        return self._render(self.table, st["T_world"])
+
+    def _capture_fusion(self, name: str):
+        """Capture fusion program ``name`` behind one eager run of it (the
+        call's real work); returns the eager run's result."""
+        eager, graph, launched, out = self._capture(lambda: self._fusion_body(name),
+                                                    f"the fusion program {name!r}")
+        self._fusion[name] = (graph, launched, self._fusion_ptrs(), out)
+        return eager
+
+    def _run_fusion(self, name: str):
+        """Fusion program ``name`` on the static inputs, as ``process_frame``
+        runs it: on the card replayed from its graph (captured first, behind
+        one eager run, if it has none, or again if the paged-key array grew
+        since, counted in ``fusion_recaptures``); else eagerly. Returns the
+        render's outputs (on a replay, the graph's own tensors)."""
+        if not self._fusion_graphs_on():
+            return self._fusion_body(name)
+        from bundlefusion_tpu_torch import kernels
+
+        entry = self._fusion.get(name)
+        if entry is not None:
+            ptrs = self._fusion_ptrs()
+            if entry[2][:-1] != ptrs[:-1]:
+                raise RuntimeError("the voxel table, the window, the frame archive or the "
+                                   "anchor pose was replaced after the fusion graphs were "
+                                   "captured: the engine updates them in place")
+            if entry[2][-1] != ptrs[-1]:
+                self.fusion_recaptures += 1
+                entry = None
+        if entry is None:
+            return self._capture_fusion(name)
+        graph, launched, _, out = entry
+        graph.replay()
+        for k, n in launched.items():
+            kernels.launch_counts[k] += n
+        return out
+
     def _apply_tsdf_ops(self, depths, colors, poses, signs, img_of_op):
         """Fused multi-op TSDF update of ``self.table`` (in place).
         Ops apply sequentially; sign 0 is an exact no-op."""
@@ -735,10 +857,14 @@ class BundleFusion:
 
     def _render_frame(self, f: int, T_world):
         """The per-frame visualisation of ``process_frame``: splat the TSDF
-        at the frame's pose into ``last_render`` every ``render_every``
-        frames (the reference renders every frame)."""
+        at the frame's pose (a device tensor, or a host pose) into
+        ``last_render`` every ``render_every`` frames (the reference renders
+        every frame). ``last_render`` is a copy: a replay rewrites the
+        graph's outputs, not an earlier render."""
         if self.render_every and f % self.render_every == 0:
-            self.last_render = self._render(self.table, T_world)
+            self._set_fusion_inputs(T_world=T_world)
+            out = self._run_fusion("render")
+            self.last_render = {k: v.clone() for k, v in out.items()}
 
     def _as_pose(self, T) -> torch.Tensor:
         return torch.as_tensor(T, dtype=torch.float32, device=self.device)
@@ -828,47 +954,49 @@ class BundleFusion:
     def _decode_frames(self, fids):
         return decode_frame(*load_frames(self.store, fids))
 
-    def _tsdf_fast(self, fid: int, T_cur, valid: bool):
-        """Typical frame: the current frame's fuse only — one allocation
-        and one kernel sweep."""
-        dev = self.device
-        T_cur = self._as_pose(T_cur)
-        d, c = self._decode_frames(torch.tensor([fid], device=dev))
+    def _tsdf_fast(self, store_slot, T_cur, valid):
+        """Typical frame: the current frame's fuse — one allocation and one
+        kernel sweep. ``store_slot`` (int64 [1]), ``T_cur`` [4, 4] and
+        ``valid`` (bool []) are tensors on the device, as the reference's
+        jitted ``tsdf_fast`` takes them: the sign is the validity, and
+        nothing is read back."""
+        d, c = self._decode_frames(store_slot.reshape(1))
         packed = candidate_keys(d[0], self.intr_int, T_cur, self.tsdf_params)
-        if not valid:
-            packed = torch.full_like(packed, EMPTY_KEY)
-        allocate_packed(self.table, packed, blocked=self._blocked_dev)
-        # signs and image indices stay on the host: the op reads nothing back
-        self._apply_tsdf_ops(d, c, T_cur[None], [1.0 if valid else 0.0], [0])
+        allocate_packed(self.table, torch.where(valid, packed, EMPTY_KEY),
+                        blocked=self._blocked_dev)
+        self._apply_tsdf_ops(d, c, T_cur[None], valid.to(torch.float32).reshape(1),
+                             torch.zeros((1,), dtype=torch.int32, device=self.device))
 
-    def _tsdf_rows(self, packed_rows: np.ndarray, fid_cur: int, T_cur, cur_valid: bool):
+    def _tsdf_rows(self, rows, store_slot, T_cur, cur_valid):
         """Re-integration frame: up to R rows (de/re/int ops) plus the
         current frame's fuse, in one batched allocation and one kernel
-        sweep. ``packed_rows`` [R, 34] = fid | op | T_old flat | T_new flat
-        (op: 0 skip, 1 de-integrate, 2 de+re, 3 integrate)."""
+        sweep. ``rows`` [R, 34] = fid | op | T_old flat | T_new flat (op: 0
+        skip, 1 de-integrate, 2 de+re, 3 integrate), ``store_slot`` (int64
+        [1]), ``T_cur`` and ``cur_valid`` are tensors on the device; the
+        signs are computed there, as the reference's jitted ``tsdf_rows``
+        computes them."""
         R = REINT_ROWS
-        dev = self.device
-        T_cur = self._as_pose(T_cur)
-        rows = torch.as_tensor(packed_rows, dtype=torch.float32, device=dev)
         row_fids = rows[:, 0].to(torch.int64)
+        row_ops = rows[:, 1].to(torch.int32)
         T_olds = rows[:, 2:18].reshape(R, 4, 4)
         T_news = rows[:, 18:34].reshape(R, 4, 4)
-        fids = torch.cat([row_fids, torch.tensor([fid_cur], device=dev)])
+        fids = torch.cat([row_fids, store_slot.reshape(1)])
         depths, colors = self._decode_frames(fids)           # [R+1, ...]
-        host_ops = [int(m) for m in np.asarray(packed_rows)[:, 1]]
-        de_en = [m in (1, 2) for m in host_ops]
-        re_en = [m in (2, 3) for m in host_ops]
+        de_en = (row_ops == 1) | (row_ops == 2)
+        re_en = (row_ops == 2) | (row_ops == 3)
 
-        # ops: [de_0, re_0, de_1, re_1, ..., current]; signs and image
-        # indices stay on the host, so the op reads nothing back
+        # ops: [de_0, re_0, de_1, re_1, ..., current]
         poses = torch.cat([torch.stack([T_olds, T_news], 1).reshape(2 * R, 4, 4), T_cur[None]])
-        signs = [s for de, re in zip(de_en, re_en) for s in (-float(de), float(re))]
-        signs.append(float(bool(cur_valid)))
-        img_of_op = [i for i in range(R) for _ in (0, 1)] + [R]
+        signs = torch.cat([
+            torch.stack([-de_en.to(torch.float32), re_en.to(torch.float32)], 1).reshape(2 * R),
+            cur_valid.to(torch.float32).reshape(1),
+        ])
+        img_of_op = torch.div(torch.arange(2 * R + 1, device=self.device), 2,
+                              rounding_mode="floor").to(torch.int32)
 
         # batched allocation: re-integration targets + current frame, with
         # the dedup budget scaled so each frame keeps its own
-        alloc_en = torch.tensor(re_en + [bool(cur_valid)], device=dev)
+        alloc_en = torch.cat([re_en, cur_valid.reshape(1)])
         alloc_T = torch.cat([T_news, T_cur[None]])
         packed = torch.stack([
             candidate_keys(depths[i], self.intr_int, alloc_T[i], self.tsdf_params)
@@ -882,7 +1010,10 @@ class BundleFusion:
     def _tsdf_dispatch(self, store_slot=None, T_world=None, valid=None):
         """The frame's fused TSDF dispatch: the re-integration budget plus
         the current frame's fuse, as one kernel sweep. With no current frame
-        (drain mode) only rows run."""
+        (drain mode) only rows run. ``T_world`` / ``valid`` are device
+        tensors (the frame program's outputs) or host values; the host
+        decides the path and the rows from its own scheduler alone, and
+        reads nothing of the card."""
         rows = self._build_reintegrate_rows() if self.app.integration_enabled else []
         has_cur = store_slot is not None
         if not rows and not has_cur:
@@ -894,8 +1025,9 @@ class BundleFusion:
             # (CUDASceneRepChunkGrid.h:142-210)
             self._stream_in_for_rows(rows)
         R = REINT_ROWS
-        if not rows and has_cur:
-            self._tsdf_fast(store_slot, T_world, bool(valid))
+        if not rows:
+            self._set_fusion_inputs(store_slot, T_world, valid)
+            self._run_fusion("fast")
             return
 
         rows = rows[:R]
@@ -911,10 +1043,10 @@ class BundleFusion:
             packed[i, 2:18] = To.reshape(-1)
             packed[i, 18:34] = Tn.reshape(-1)
         if has_cur:
-            fid_cur, T_cur, cur_valid = store_slot, T_world, bool(valid)
+            self._set_fusion_inputs(store_slot, T_world, valid, packed)
         else:
-            fid_cur, T_cur, cur_valid = 0, eye, False
-        self._tsdf_rows(packed, fid_cur, T_cur, cur_valid)
+            self._set_fusion_inputs(0, eye, False, packed)
+        self._run_fusion("rows")
         for f, mode, To, Tn in rows:
             if mode == 1:
                 self.traj_manager.mark_deintegrated(f)
@@ -1314,7 +1446,8 @@ class BundleFusion:
         ``finish`` solves and the composition. What a timed run would
         otherwise pay at its first frame or boundary (kernel builds, library
         handles, first-call set-up) is paid here. On the card it then
-        captures ``_frame_step`` once per window slot (``_build_programs``).
+        captures ``_frame_step`` once per window slot and the three fusion
+        programs once each (``_build_programs``).
         A zero frame contributes no TSDF blocks, no correspondences and no
         keyframe validity; the window is reset in place and the keyframe
         graph replaced by a fresh one at the end, so the state is a fresh
@@ -1333,14 +1466,14 @@ class BundleFusion:
             h, w = self.intr_input.height, self.intr_input.width
             T_dev, valid_dev = self._frame_step(np.zeros((h, w), np.uint16),
                                                 np.zeros((h, w, 3), np.uint8), 0, 0)
-            T_world, valid = self._read_pose(T_dev, valid_dev)
             # zero depth -> no candidate blocks: the TSDF / gc warmups change nothing
-            self._tsdf_fast(0, T_world, valid)
+            slot = torch.zeros((1,), dtype=torch.int64, device=dev)
+            self._tsdf_fast(slot, T_dev, valid_dev)
             packed = np.zeros((REINT_ROWS, 34), np.float32)
             packed[:, 2:18] = packed[:, 18:34] = np.eye(4, dtype=np.float32).reshape(-1)
-            self._tsdf_rows(packed, 0, T_world, valid)
+            self._tsdf_rows(torch.as_tensor(packed, device=dev), slot, T_dev, valid_dev)
             garbage_collect(self.table)
-            self._render(self.table, T_world)
+            self._render(self.table, T_dev)
         self._submap_step(1, T_dev)
         # revalidation path: match + append against an all-invalid store
         glob = self.glob
@@ -1362,7 +1495,7 @@ class BundleFusion:
         self.glob = self._fresh_global()
         self.kf_valid_dev.zero_()
         self.submap_base.copy_(torch.eye(4, dtype=torch.float32, device=dev))
-        if self._graphs_on():
+        if self._graphs_on() or self._fusion_graphs_on():
             self._build_programs()
             self._sync_device()
         self.timing = TimingLog(self.timing.enabled, self.timing.sync)
@@ -1434,8 +1567,11 @@ class BundleFusion:
             with self._device_stage("dev_frame_step", prof):
                 T_world_dev, valid_dev = self._run_frame_step(depth_dev, color_dev, cur_slot,
                                                               store_slot)
-            # the TSDF dispatch's op signs are host lists: the frame's one read
-            T_world, valid = self._read_pose(T_world_dev, valid_dev)
+        # the fusion programs read the pose and validity on the device: from
+        # the frame graph's outputs themselves when it replays, so nothing is
+        # read back and nothing copied between the programs
+        T_world, valid = ((self._static["T_world"], self._static["valid"]) if self._graphs_on()
+                          else (T_world_dev, valid_dev))
 
         # fused TSDF dispatch: re-integration budget + current frame's fuse
         # in one kernel sweep (reference order: reintegrate() then
@@ -1502,9 +1638,11 @@ class BundleFusion:
 
     def _refresh_blocked_dev(self):
         """Rebuild the sorted device-side paged-key array from the host
-        store. It grows (doubling) rather than truncating: a dropped key
-        would let the allocation re-create that block empty, forking it from
-        its host copy, which a later stream-in would overwrite."""
+        store, in place. It grows (doubling) rather than truncating: a
+        dropped key would let the allocation re-create that block empty,
+        forking it from its host copy, which a later stream-in would
+        overwrite. A grown array is a new tensor, and the fusion programs,
+        which read it by address, are captured again at their next use."""
         cap = self._blocked_dev.shape[0]
         n = len(self.host_blocks.blocks)
         while n > cap:
@@ -1513,7 +1651,10 @@ class BundleFusion:
         if n:
             arr[:n] = np.sort(np.fromiter(self.host_blocks.blocks.keys(), np.int64)
                               .astype(np.int32))
-        self._blocked_dev = torch.as_tensor(arr, device=self.device)
+        if cap == self._blocked_dev.shape[0]:
+            self._blocked_dev.copy_(torch.from_numpy(arr))
+        else:
+            self._blocked_dev = torch.as_tensor(arr, device=self.device)
 
     # ------------------------------------------------------------------
     def _flush_pending(self):

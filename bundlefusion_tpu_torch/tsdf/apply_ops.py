@@ -83,16 +83,33 @@ def pack_images(depths: torch.Tensor, colors: torch.Tensor):
     return packed, img_dmax
 
 
-def _host_ops(signs, img_of_op, n_ops: int, n_imgs: int):
-    """Per-op signs and image indices as host lists, validated. A tensor
-    on the card is read back here (one wait for the device each)."""
-    signs = [float(x) for x in (signs.tolist() if isinstance(signs, torch.Tensor) else signs)]
-    imgs = [int(x) for x in
-            (img_of_op.tolist() if isinstance(img_of_op, torch.Tensor) else img_of_op)]
-    if len(signs) != n_ops or len(imgs) != n_ops:
-        raise ValueError(f"{n_ops} poses but {len(signs)} signs and {len(imgs)} image indices")
-    if any(not 0 <= i < n_imgs for i in imgs):
-        raise ValueError(f"img_of_op {imgs} out of range for {n_imgs} images")
+def _op_vector(x, dtype, device):
+    """(the values as a 1-d tensor on ``device``, their host copy to validate
+    or None for a tensor that is on ``device`` already and is not read)."""
+    if isinstance(x, torch.Tensor) and x.device.type == device.type:
+        return x.to(device=device, dtype=dtype).reshape(-1), None
+    host = torch.as_tensor(x, dtype=dtype).cpu().reshape(-1)
+    if device.type == "cuda":
+        # pinned and non-blocking: the copy is enqueued, nothing waits
+        return host.pin_memory().to(device, non_blocking=True), host
+    return host, host
+
+
+def op_table(signs, img_of_op, n_ops: int, n_imgs: int, device):
+    """The op table as the kernels read it: per-op signs float32 [OPS] and
+    image indices int32 [OPS], on ``device``. Tensors on ``device`` pass
+    through unread (an op whose image index is out of range is skipped, on
+    the card and in the plain versions alike); anything else (sequences,
+    numpy arrays, tensors on another device) is validated on the host and
+    copied."""
+    device = torch.device(device)
+    signs, _ = _op_vector(signs, torch.float32, device)
+    imgs, imgs_h = _op_vector(img_of_op, torch.int32, device)
+    if signs.shape[0] != n_ops or imgs.shape[0] != n_ops:
+        raise ValueError(f"{n_ops} poses but {signs.shape[0]} signs and {imgs.shape[0]} "
+                         f"image indices")
+    if imgs_h is not None and bool(((imgs_h < 0) | (imgs_h >= n_imgs)).any()):
+        raise ValueError(f"img_of_op {imgs_h.tolist()} out of range for {n_imgs} images")
     return signs, imgs
 
 
@@ -127,7 +144,9 @@ def _voxel_centers(key: torch.Tensor, params: TsdfParams):
 def _rows_update(key, sdf, w, col, d_q, c_q, w2c, signs, img_of_op,
                  intr: CameraIntrinsics, params: TsdfParams, op_mask=None):
     """The update rule over rows, on pre-quantised images and world-to-camera
-    matrices. ``op_mask`` [R, OPS] bool, if given, closes the update gate
+    matrices; ``signs`` / ``img_of_op`` the op table as tensors [OPS] on the
+    rows' device (read there: an op whose image index is out of range is
+    skipped). ``op_mask`` [R, OPS] bool, if given, closes the update gate
     of op o on every row r with ``op_mask[r, o]`` false. Returns new
     (sdf, weight, color) rows."""
     wx, wy, wz, live = _voxel_centers(key, params)
@@ -135,10 +154,13 @@ def _rows_update(key, sdf, w, col, d_q, c_q, w2c, signs, img_of_op,
     dmax = min(params.depth_max, params.max_integration_distance)
     d_flat = d_q.reshape(IMGS, H * W)
     c_flat = c_q.reshape(IMGS, H * W, 3)
+    img_ok = (img_of_op >= 0) & (img_of_op < IMGS)
+    signs = torch.where(img_ok, signs, 0.0)
+    imgs = torch.clamp(img_of_op, 0, IMGS - 1).to(torch.int64)
     for o in range(w2c.shape[0]):
         R, tr = w2c[o, :3, :3], w2c[o, :3, 3]
         sign = signs[o]
-        img = int(img_of_op[o])
+        img = imgs[o:o + 1]  # the image is picked on the device
         px = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + tr[0]
         py = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + tr[1]
         z = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + tr[2]
@@ -151,8 +173,8 @@ def _rows_update(key, sdf, w, col, d_q, c_q, w2c, signs, img_of_op,
         uc = torch.clamp(uf, 0, W - 1).to(torch.int64)
         vc = torch.clamp(vf, 0, H - 1).to(torch.int64)
         lin = vc * W + uc
-        d = d_flat[img][lin]
-        rgb = c_flat[img][lin]                               # [R, V, 3]
+        d = d_flat.index_select(0, img)[0][lin]
+        rgb = c_flat.index_select(0, img)[0][lin]            # [R, V, 3]
         depth_ok = (d >= params.depth_min) & (d <= dmax)
         sd = d - z
         trunc = params.truncation + params.truncation_scale * d
@@ -181,8 +203,10 @@ def apply_tsdf_ops_rows(key, sdf_rows, weight_rows, color_rows, depths, colors,
                         params: TsdfParams):
     """Plain row-range core: apply the op batch to arbitrary payload rows
     (each row independent given its packed block key). Takes the raw
-    images and cam-to-world poses like the reference; returns new
-    (sdf, weight, color) rows."""
+    images and cam-to-world poses like the reference, and the op table as
+    :func:`op_table` does; returns new (sdf, weight, color) rows."""
+    signs, img_of_op = op_table(signs, img_of_op, poses.shape[0], depths.shape[0],
+                                depths.device)
     d_q, c_q = quantize_images(depths, colors)
     return _rows_update(key, sdf_rows, weight_rows, color_rows, d_q, c_q,
                         pose_inverse(poses), signs, img_of_op, intr, params)
@@ -194,10 +218,10 @@ def apply_tsdf_ops_ref(table: VoxelBlockTable, depths, colors, poses, signs,
     """Plain full sweep: the update rule over every payload row (live or
     not; dead rows and the dummy row stay untouched), in place. The oracle
     of the CUDA kernels and the CPU path of :func:`apply_tsdf_ops`; takes
-    ``signs`` / ``img_of_op`` as tensors or host sequences."""
+    ``signs`` / ``img_of_op`` as :func:`op_table` does."""
     N = table.num_blocks
-    signs, img_of_op = _host_ops(signs, img_of_op, poses.shape[0], depths.shape[0])
-    signs = torch.tensor(signs, dtype=torch.float32, device=depths.device)
+    signs, img_of_op = op_table(signs, img_of_op, poses.shape[0], depths.shape[0],
+                                depths.device)
     d_q, c_q = quantize_images(depths, colors)
     w2c = pose_inverse(poses)
     for r0 in range(0, N, REF_CHUNK_ROWS):
@@ -292,14 +316,16 @@ def apply_tsdf_ops(table: VoxelBlockTable, depths, colors, poses, signs, img_of_
       signs: [OPS] +1 integrate, -1 de-integrate, 0 no-op.
       img_of_op: [OPS] index into depths / colors.
 
-    ``signs`` and ``img_of_op`` are host values: sequences or CPU tensors.
-    Tensors on the card are taken too, but are read back first, which
-    waits for the device.
+    ``signs`` and ``img_of_op`` are tensors on the table's device, read
+    there and nowhere else (an op whose image index is out of range is
+    skipped), or host values (sequences or CPU tensors), which are validated
+    and copied to the device (:func:`op_table`).
 
     A table on the card launches the three CUDA kernels (image pass, cull,
-    sweep) on the current stream, and raises if it cannot; with host
-    ``signs`` / ``img_of_op`` nothing between entry and return waits for
-    the device. A table on the CPU runs the plain full sweep.
+    sweep) on the current stream, and raises if it cannot; nothing between
+    entry and return waits for the device, so the op can be captured in a
+    CUDA graph (with the op table on the card). A table on the CPU runs the
+    plain full sweep.
     """
     if not table.sdf.is_cuda:
         return apply_tsdf_ops_ref(table, depths, colors, poses, signs, img_of_op,
@@ -317,7 +343,7 @@ def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, 
     prepare, cull, sweep = stages
     OPS = poses.shape[0]
     IMGS, H, W = depths.shape
-    signs, imgs = _host_ops(signs, img_of_op, OPS, IMGS)
+    signs, imgs = op_table(signs, img_of_op, OPS, IMGS, depths.device)
     if OPS > MAX_OPS:
         raise ValueError(f"{OPS} ops: the op mask holds at most {MAX_OPS}")
     w2c = world_to_camera_rows(poses.to(torch.float32))
@@ -329,9 +355,12 @@ def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, 
 
 def _cull_plain(table, w2c, signs, imgs, img_dmax, intr, params, H, W):
     """:func:`active_block_rows` at the cull launcher's interface: the row
-    list, the masks and the number of listed rows as a tensor [1]."""
+    list, the masks and the number of listed rows as a tensor [1]. An op
+    whose image index is out of range touches no row, as in the kernel."""
+    n_imgs = img_dmax.shape[0]
+    signs = torch.where((imgs >= 0) & (imgs < n_imgs), signs, 0.0)
     rows, masks = active_block_rows(table, w2c, signs, intr, params, H, W,
-                                    op_dmax=img_dmax[imgs])
+                                    op_dmax=img_dmax[torch.clamp(imgs, 0, n_imgs - 1).long()])
     n_rows = torch.tensor([rows.shape[0]], dtype=torch.int32, device=rows.device)
     return rows, masks, n_rows
 
@@ -344,9 +373,8 @@ def _launch_plain(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr, pa
     r = rows[:n].long()
     sdf, w, col = _rows_update(
         table.slot_keys[r], table.sdf[r], table.weight[r], table.color[r],
-        packed[..., 0], packed[..., 1:4], w2c,
-        torch.tensor(signs, dtype=torch.float32, device=packed.device), imgs,
-        intr, params, op_mask=mask_bits(masks[:n], len(signs)),
+        packed[..., 0], packed[..., 1:4], w2c, signs, imgs, intr, params,
+        op_mask=mask_bits(masks[:n], signs.shape[0]),
     )
     table.sdf[r] = sdf
     table.weight[r] = w

@@ -45,6 +45,24 @@ def _walk_z(a):
     return a.reshape(a.shape[0], 8, 8, 8).permute(0, 2, 3, 1).reshape(a.shape[0], 64, 8)
 
 
+def walk_orders(device) -> torch.Tensor:
+    """[3, 512] int64: row ``a`` holds the block's voxel indices in the order
+    ``_walk_x`` / ``_walk_y`` / ``_walk_z`` lay them out (64 runs of 8 along
+    axis ``a``)."""
+    lin = torch.arange(BLOCK_VOLUME, dtype=torch.int64, device=device)[None]
+    return torch.stack([w(lin).reshape(BLOCK_VOLUME) for w in (_walk_x, _walk_y, _walk_z)])
+
+
+def _gathered_walk(order: torch.Tensor):
+    """The walk of one axis chosen on the device: ``order`` [512] from
+    :func:`walk_orders`, picked by an index tensor. The reference's
+    ``lax.switch`` over the three walks; a gather of the same values, so
+    bit for bit what the walk gives, with no read of the axis on the host."""
+    def walk(a):
+        return a.index_select(1, order).reshape(a.shape[0], 64, 8)
+    return walk
+
+
 def _run_crossings(sdf, w, axis_reshape, extras=()):
     """First sub-voxel surface crossing along each 8-voxel run.
 
@@ -136,16 +154,15 @@ def splat_render(table: VoxelBlockTable, intr: CameraIntrinsics, cam_to_world,
     else:
         extras = ()
 
-    # ---- 3. crossings along the dominant view axis ----
-    axis = int(torch.argmax(torch.abs(cam_to_world[:3, 2])))
-    walk = (_walk_x, _walk_y, _walk_z)[axis]
-    valid, alpha_c, lin_lo, extras_lo = _run_crossings(sdf, wgt, walk, extras)
+    # ---- 3. crossings along the dominant view axis, chosen on the device ----
+    axis = torch.argmax(torch.abs(cam_to_world[:3, 2])).reshape(1)
+    order = walk_orders(dev).index_select(0, axis)[0]
+    valid, alpha_c, lin_lo, extras_lo = _run_crossings(sdf, wgt, _gathered_walk(order), extras)
 
     lx = (lin_lo % BLOCK_SIZE).to(torch.float32)
     ly = ((lin_lo // BLOCK_SIZE) % BLOCK_SIZE).to(torch.float32)
     lz = (lin_lo // (BLOCK_SIZE * BLOCK_SIZE)).to(torch.float32)
-    step = torch.zeros(3, dtype=torch.float32, device=dev)
-    step[axis] = 1.0
+    step = torch.eye(3, dtype=torch.float32, device=dev).index_select(0, axis)[0]
     base = geo_v[:, :3, None] * bs                          # [Vcap, 3, 1]
     local = torch.stack([lx, ly, lz], 1)                    # [Vcap, 3, 64]
     off = local + 0.5 + step[None, :, None] * alpha_c[:, None, :]

@@ -10,8 +10,11 @@ index ``num_blocks``.
 
 PyTorch idiom: ``VoxelBlockTable`` is a dataclass of tensors and the
 operations update its tensors **in place** and return the same object
-(the JAX functions return a new table). JAX's out-of-range ``mode="drop"``
-scatters are written with a drop slot: an out-of-range target is routed
+(the JAX functions return a new table). Allocation and freeing write into
+the tensors' own storages, so a table keeps every storage for its life (a
+captured CUDA graph reads and writes them by address); ``defrag_prefix``,
+which no engine path calls, still rebinds some. JAX's out-of-range
+``mode="drop"`` scatters are written with a drop slot: an out-of-range target is routed
 to a spare index (the dummy row, or one padding element) whose content is
 restored or discarded, because ``index_put_`` would raise on the CPU and
 write out of bounds on the card. Scalars (``free_count``,
@@ -240,18 +243,19 @@ def allocate_packed(
         table.high_water,
         torch.max(torch.where(can_alloc, new_slot + 1, 0)).to(torch.int32),
     )
-    table.keys = all_keys_sorted[:cap].contiguous()
-    table.slots = all_slots[order][:cap].contiguous()
-    table.free_count = (free_count0 - num_new).to(torch.int32)
-    table.num_alloc_failures = fails.to(torch.int32)
-    table.high_water = hw
+    table.keys.copy_(all_keys_sorted[:cap])
+    table.slots.copy_(all_slots[order][:cap])
+    table.free_count.copy_(free_count0 - num_new)
+    table.num_alloc_failures.copy_(fails)
+    table.high_water.copy_(hw)
 
     # slot-major inverse map + per-slot geometry rows. Rows not allocated
     # are routed to the dummy row N, whose content is restored after.
     N = table.num_blocks
     scatter_to = torch.where(can_alloc, new_slot, N).to(torch.int64)
     table.slot_keys[scatter_to] = packed
-    table.slot_keys[N] = EMPTY_KEY
+    # fills: a host scalar set into one element would be copied to the card
+    table.slot_keys[N:].fill_(EMPTY_KEY)
     geo_rows = torch.cat(
         [
             unpack_key(packed).to(torch.float32),
@@ -260,7 +264,7 @@ def allocate_packed(
         dim=1,
     )
     table.slot_geo[scatter_to] = geo_rows
-    table.slot_geo[N] = 0.0
+    table.slot_geo[N:].zero_()
     return table
 
 
@@ -292,20 +296,19 @@ def free_blocks(table: VoxelBlockTable, free_mask: torch.Tensor) -> VoxelBlockTa
         free_mask, slots0.to(torch.int64), N
     )
     freed = freed[:FREE_COMPACT]
-    table.sdf[freed] = 0.0
-    table.weight[freed] = 0.0
-    table.color[freed] = 0.0
+    for name in ("sdf", "weight", "color"):
+        getattr(table, name).index_fill_(0, freed, 0.0)
     uncleared = torch.clamp(num_free - FREE_COMPACT, min=0)
     # every freed slot leaves the slot-major inverse map (the dummy row N
     # already holds EMPTY_KEY / zeros, so routing the rest there is inert)
     freed_to = torch.where(free_mask, slots0.to(torch.int64), N)
-    table.slot_keys[freed_to] = EMPTY_KEY
-    table.slot_geo[freed_to] = 0.0
+    table.slot_keys.index_fill_(0, freed_to, EMPTY_KEY)
+    table.slot_geo.index_fill_(0, freed_to, 0.0)
 
-    table.keys = keys_sorted.contiguous()
-    table.slots = slots[order].contiguous()
-    table.free_count = (table.free_count + num_free).to(torch.int32)
-    table.num_alloc_failures = (table.num_alloc_failures + uncleared).to(torch.int32)
+    table.keys.copy_(keys_sorted)
+    table.slots.copy_(slots[order])
+    table.free_count.copy_(table.free_count + num_free)
+    table.num_alloc_failures.copy_(table.num_alloc_failures + uncleared)
     return table
 
 

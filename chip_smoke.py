@@ -32,26 +32,30 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    noise, pushing the noise-free poses after frames 10, 20 and 30 (as
    submap retirements do) and at the end, then drain the re-integration
    queue and extract the mesh. The op is held against its plain version
-   again at the engine's first 1-op and first 11-op dispatch;
+   again at the engine's first 1-op and first 11-op dispatch (those two run
+   eagerly; every other dispatch and render replays the fusion graphs);
 4. profile: 20 more frames of the same loop under ``torch.profiler`` for the
    card's busy share;
 5. frontend: the same 40 wire frames through the whole per-frame path in
    the order ``process_frame`` has it, with the engine estimating its own
    poses: ``_frame_step`` (archive, SIFT, stores, matching, the Kabsch ->
    surface-area -> dense-verify cascade, correspondences, chained pose) as
-   ``process_frame`` runs it (``_run_frame_step``), one read-back of pose
-   and validity, the TSDF dispatch, bookkeeping, the render; at every 10th
-   frame the window rolls over and the chained pose becomes the new
-   window's base. Five runs with one wait per frame, in turns: the step
-   replayed from its captured graphs (the checks), run eagerly (the
-   engine's private switch), eagerly with the greedy filter's plain version
-   patched in (``_PlainKabsch``; the package has no switch), eagerly, and
-   the graphs again: frame times, the step's host ms and its host waits per
-   frame (``set_sync_debug_mode("warn")``), launches. The flags must be
-   equal in all five, the graph's and the eager run's chained poses equal
-   bit for bit and their launches equal, and the graphs and the kernel's
-   eager run must make no host wait. Then eagerly, with a wait around every
-   stage, the plain filter and the kernel (stage times, the filter's host
+   ``process_frame`` runs it (``_run_frame_step``), then the TSDF dispatch
+   and the render on the step's pose and validity on the card (the fusion
+   programs), then this phase's bookkeeping, which reads the pose back; at
+   every 10th frame the window rolls over and the chained pose becomes the
+   new window's base. Five runs with one wait per frame, in turns: the step
+   and the fusion replayed from their captured graphs (the checks), both
+   run eagerly (the engine's private switches), eagerly with the greedy
+   filter's plain version patched in (``_PlainKabsch``; the package has no
+   switch), eagerly, and the graphs again: frame times, the host ms of the
+   step, the dispatch and the render, the host waits per frame of the whole
+   path (``set_sync_debug_mode("warn")``), launches. The flags must be
+   equal in all five, the graph's and the eager run's chained poses, voxel
+   tables and last renders equal bit for bit and their launches equal, and
+   the graphs and the kernel's eager run must make no host wait. Then
+   eagerly, with a wait around every stage, the plain filter and the
+   kernel (stage times, the filter's host
    reads), then for the graphs, eager and plain each 5 frames of the step
    under the profiler (launches per frame, device ms, busy share; for the
    graphs also CUDA events around each replay) and 2 eager frames with a
@@ -90,7 +94,9 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    of more than 10 000 triangles; ``render`` (the raycast) at the last pose
    is within 2 voxels of the true depth, as the splat is; an engine with
    host paging (radius PAGE_RADIUS_M, a sweep every PAGE_EVERY frames) runs
-   PAGE_FRAMES frames and a natural sweep must page blocks out; the same run
+   PAGE_FRAMES frames and a natural sweep must page blocks out; its
+   paged-key array starts at PAGE_BLOCKED_CAP entries, the run outgrows it,
+   and the fusion graphs must be captured again (``fusion_recaptures``); the same run
    saved midway with its host blocks, loaded and continued must equal the
    unbroken run bit for bit (trajectory, flags, host keys, payload by key);
    and the contract of ``tests/test_streaming_engine.py``: an engine paged
@@ -150,8 +156,8 @@ rows, 262 144 keys, windows of 11 frames, 150 keys, 128 raw matches, an
    every frame uploaded before ``warmup``, 12 warm-up and 60 timed frames,
    16 replayed with a wait around every stage, 20 streamed, then
    ``finish(extra_solves=2)``). Four runs in turns: as it is (the frame
-   step replayed from its graphs), with the step run eagerly, with the
-   greedy filter's plain version (eager), as it is again. It fails unless
+   step and the fusion replayed from their graphs), with both run eagerly,
+   with the greedy filter's plain version (eager), as it is again. It fails unless
    every run but the plain one exits 0 on the card with 108 of 108 frames
    valid, no pair dropped, the ATE under 0.10 m and all five kernels
    launched, and the plain one keeps every frame valid.
@@ -240,6 +246,7 @@ ATE_MAX_M = 0.10
 PAGE_FRAMES = 30      # frames of each paging run of phase_recorded
 PAGE_EVERY = 3        # its sweep cadence (frames)
 PAGE_RADIUS_M = 2.2   # its paging radius: pages out part of the synthetic scene
+PAGE_BLOCKED_CAP = 1024  # its paged-key array's first size (over 1 000 blocks are paged)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 ROW_BYTES = 5 * 512 * 4     # sdf + weight + 3 colour channels of one payload row
@@ -454,10 +461,13 @@ def phase_kernels(dev, seq, noisy, gt, app):
         _restore(work, base)
         _restore(ref, base)
 
-    for name, (d, c, p, signs, imgs) in batches.items():
+    for name, (d, c, p, signs_host, imgs_host) in batches.items():
         H, W = d.shape[1:]
         w2c = apply_ops.world_to_camera_rows(p)
-        imgs_t = torch.tensor(imgs, device=dev)
+        # the op table on the card, as the engine's fusion programs hand it over
+        signs = torch.tensor(signs_host, dtype=torch.float32, device=dev)
+        imgs = torch.tensor(imgs_host, dtype=torch.int32, device=dev)
+        imgs_t = imgs.long()
 
         def run_kernel():
             apply_ops.apply_tsdf_ops(work, d, c, p, signs, imgs, intr, params)
@@ -507,9 +517,9 @@ def phase_kernels(dev, seq, noisy, gt, app):
         if missed or int(in_list.sum()) != n:
             raise AssertionError(f"tsdf_cull: {missed} changed rows not listed, "
                                  f"{n - int(in_list.sum())} rows listed twice")
-        row_ops = int(apply_ops.mask_bits(masks[:n], len(signs)).sum())
+        row_ops = int(apply_ops.mask_bits(masks[:n], len(signs_host)).sum())
         live_rows = int((base.slot_keys[:-1] != EMPTY_KEY).sum())
-        active = sum(1 for x in signs if x != 0.0)
+        active = sum(1 for x in signs_host if x != 0.0)
 
         # the bare sweep on the kernel's list
         def run_launch(grid=0):
@@ -545,7 +555,7 @@ def phase_kernels(dev, seq, noisy, gt, app):
                 times[fn].append(_event_ms(fn))
         med = {fn.__name__: statistics.median(v) for fn, v in times.items()}
 
-        used_imgs = len({i for i, x in zip(imgs, signs) if x != 0.0})
+        used_imgs = len({i for i, x in zip(imgs_host, signs_host) if x != 0.0})
         sample_bytes = H * W * 16
         out[name] = {
             "max_abs_err": err,
@@ -581,7 +591,7 @@ def phase_kernels(dev, seq, noisy, gt, app):
                 "ms": med["run_cull"],
                 "plain_ms": med["run_cull_plain"],
                 "kernel_ms": _kernel_device_ms(run_cull, "tsdf_cull_kernel"),
-                "bound": _bound(N * 4 + n * 12 + len(signs) * 64 + 4,
+                "bound": _bound(N * 4 + n * 12 + len(signs_host) * 64 + 4,
                                 live_rows * active * 8 * FLOP_PER_CORNER),
             },
         }
@@ -875,54 +885,75 @@ def _live_rows(table) -> int:
 
 
 class _CheckedApply:
-    """Wraps the engine's TSDF op: counts dispatches and, at the first
-    1-op and the first multi-op dispatch, holds the kernel's result against
-    the plain version run on a snapshot taken before the call. With
-    ``min_rows`` it checks the first of each once the table holds that many
-    live rows, and there also times the op and its plain version (CUDA
-    events) and counts the rows the op changed, for the bound: each changed
-    row read and written once, every op on every changed row."""
+    """Wraps the engine's fusion programs (``_run_fusion``): counts the
+    TSDF dispatches and, at the first fast and the first rows dispatch,
+    runs that dispatch eagerly and holds the kernels' result against the
+    plain version run on a snapshot taken right before the op. Every other
+    dispatch, and every render, runs as the engine runs it (on the card, a
+    replay of the captured graph). With ``min_rows`` it checks the first of
+    each once the table holds that many live rows, and there also times the
+    op and its plain version (CUDA events) and counts the rows the op
+    changed, for the bound: each changed row read and written once, every
+    op on every changed row."""
 
     def __init__(self, eng, min_rows=None):
         self.eng = eng
-        self.inner = eng._apply_tsdf_ops
+        self.inner = eng._run_fusion
         self.min_rows = min_rows
         self.dispatches = 0
         self.checked = {}
 
-    def __call__(self, depths, colors, poses, signs, img_of_op):
+    def __call__(self, name):
+        if name == "render":
+            return self.inner(name)
+        self.dispatches += 1
+        if name in self.checked or (self.min_rows is not None
+                                    and _live_rows(self.eng.table) < self.min_rows):
+            return self.inner(name)
+        eng = self.eng
+        apply = eng._apply_tsdf_ops
+        eng._apply_tsdf_ops = lambda *args: self._check(name, apply, args)
+        try:
+            eng._fusion_body(name)  # eagerly: the check reads the card
+        finally:
+            del eng._apply_tsdf_ops  # the method again
+        return None
+
+    def _check(self, kind, apply, args):
         from bundlefusion_tpu_torch.tsdf.apply_ops import apply_tsdf_ops_ref
 
-        self.dispatches += 1
-        args = (depths, colors, poses, signs, img_of_op)
-        kind = "fast" if poses.shape[0] == 1 else "rows"
-        if kind in self.checked or (self.min_rows is not None
-                                    and _live_rows(self.eng.table) < self.min_rows):
-            self.inner(*args)
-            return
-        snap = self.eng.table.clone()
-        entry = {"frame": self.eng.frame_idx, "ops": int(poses.shape[0])}
+        eng = self.eng
+        poses, signs = args[2], args[3]
+        snap = eng.table.clone()
+        entry = {"frame": eng.frame_idx, "ops": int(poses.shape[0])}
 
         def plain():
-            apply_tsdf_ops_ref(snap, *args, self.eng.intr_int, self.eng.tsdf_params)
+            apply_tsdf_ops_ref(snap, *args, eng.intr_int, eng.tsdf_params)
 
         if self.min_rows is None:
-            self.inner(*args)
+            apply(*args)
             plain()
             _sync()
         else:
             before = snap.clone()
-            entry["ms"] = _event_ms(lambda: self.inner(*args))
+            entry["ms"] = _event_ms(lambda: apply(*args))
             entry["plain_ms"] = _event_ms(plain)
-            changed = int(_changed_rows(self.eng.table, before).sum())
+            changed = int(_changed_rows(eng.table, before).sum())
             del before
-            n_ops = sum(1 for x in signs if x != 0)
-            entry.update(live_rows=_live_rows(self.eng.table), rows_changed=changed,
+            n_ops = int((signs != 0).sum())
+            entry.update(live_rows=_live_rows(eng.table), rows_changed=changed,
                          bound=_bound(changed * 2 * ROW_BYTES,
                                       changed * n_ops * 512 * FLOP_PER_VOXEL_OP))
-        entry["max_abs_err"] = _compare(self.eng.table, snap)
+        entry["max_abs_err"] = _compare(eng.table, snap)
         self.checked[kind] = entry
         del snap
+
+
+def _check_apply(eng, min_rows=None) -> _CheckedApply:
+    """Attach a :class:`_CheckedApply` to ``eng``; returns it."""
+    checker = _CheckedApply(eng, min_rows)
+    eng._run_fusion = checker  # the instance attribute shadows the method
+    return checker
 
 
 def _drive_frame(eng, seq, noisy, gt, i, stage, push_after=PUSH_AFTER):
@@ -991,8 +1022,7 @@ def phase_slice(dev, seq, noisy, gt, app):
 
     eng = BundleFusion(seq["intrinsics"], app, BundlingConfig(),
                        max_keyframes=N_FRAMES // 10 + 2, device=dev)
-    checker = _CheckedApply(eng)
-    eng._apply_tsdf_ops = checker  # the instance attribute shadows the method
+    checker = _check_apply(eng)
     stages = {"archive": [], "tsdf_fast": [], "tsdf_rows": [], "render": []}
 
     def timed(fn):
@@ -1199,28 +1229,40 @@ class _FrontendProbe:
         }
 
 
-def _drive_frontend_frame(eng, seq, f, stage):
+def _drive_frontend_frame(eng, seq, f, stage, count_waits=False):
     """Frame ``f`` of the whole per-frame path, in the order ``process_frame``
-    has it, each stage run through ``stage(name, fn)``. Frame k * (S-1) is
-    slot S-1 of window k-1; after it the window rolls over and the frame's
-    chained pose becomes the new window's base (where the solver's pose
-    will go). Returns (cur_slot, valid)."""
+    has it, each stage run through ``stage(name, fn)``: the frame step, the
+    TSDF dispatch and the render, which take the step's pose and validity on
+    the card (the frame graph's outputs themselves when it replays), then
+    this phase's own bookkeeping, which reads the pose back (the engine
+    records a window's poses at its boundary). Frame k * (S-1) is slot S-1
+    of window k-1; after it the window rolls over and the frame's chained
+    pose becomes the new window's base (where the solver's pose will go).
+    Returns (cur_slot, valid, the host waits of the path when
+    ``count_waits``, else None)."""
     sub_len = eng.S - 1
     slot = f % sub_len
     boundary = f > 0 and slot == 0
     cur_slot = sub_len if boundary else slot
     store_slot = eng._store_slot(f)
     eng.frame_idx = f
-    T_dev, valid_dev = stage("frame_step", lambda: eng._run_frame_step(
-        seq["depth"][f], seq["color"][f], cur_slot, store_slot))
-    T_world, valid = stage("readback", lambda: eng._read_pose(T_dev, valid_dev))
-    stage("tsdf", lambda: eng._tsdf_dispatch(store_slot, T_world, valid))
-    eng._record_frame(f, T_world, valid)
-    stage("render", lambda: eng._render_frame(f, T_world))
+
+    def path():
+        T_dev, valid_dev = stage("frame_step", lambda: eng._run_frame_step(
+            seq["depth"][f], seq["color"][f], cur_slot, store_slot))
+        T_in, v_in = ((eng._static["T_world"], eng._static["valid"]) if eng._graphs_on()
+                      else (T_dev, valid_dev))
+        stage("tsdf", lambda: eng._tsdf_dispatch(store_slot, T_in, v_in))
+        stage("render", lambda: eng._render_frame(f, T_in))
+        return T_dev, valid_dev
+
+    (T_dev, valid_dev), waits = _sync_warnings(path) if count_waits else (path(), None)
+    valid = bool(valid_dev)
+    eng._record_frame(f, T_dev.cpu().numpy(), valid)
     if boundary:
         eng._rollover_local()
         eng.submap_base.copy_(T_dev)
-    return cur_slot, valid
+    return cur_slot, valid, waits
 
 
 def _stage_ms(log, coarse):
@@ -1267,7 +1309,9 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         card and cannot be captured)."""
         eng = BundleFusion(seq["intrinsics"], app, bundling, sift_cfg=sift_cfg,
                            max_keyframes=n_frames // bundling.submap_size + 2, device=dev)
-        eng._eager_frame_step = mode != "graph"
+        # the graph run replays the frame step and the fusion programs; the
+        # others run both eagerly
+        eng._eager_frame_step = eng._eager_fusion = mode != "graph"
         if mode == "graph":
             eng._build_programs()
             _sync()
@@ -1279,17 +1323,13 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         ``stage_syncs`` every stage, the engine's own included, is closed by
         a wait for the card."""
         eng.timing.sync = _sync if stage_syncs else None
-        coarse, step_syncs = {}, []
+        coarse, path_syncs = {}, []
 
         def stage(name, fn):
             if stage_syncs:
                 _sync()
             t0 = time.perf_counter()
-            if name == "frame_step" and not stage_syncs:
-                r, n = _sync_warnings(fn)
-                step_syncs.append(n)
-            else:
-                r = fn()
+            r = fn()
             if stage_syncs:
                 _sync()
             coarse.setdefault(name, []).append(time.perf_counter() - t0)
@@ -1299,13 +1339,15 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         for f in range(n_frames):
             _sync()
             t0 = time.perf_counter()
-            cur_slot, v = _drive_frontend_frame(eng, seq, f, stage)
+            cur_slot, v, waits = _drive_frontend_frame(eng, seq, f, stage,
+                                                       count_waits=not stage_syncs)
             _sync()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             valid.append(v)
+            path_syncs.append(waits)
             # after a rollover the frame sits in slot 0 of the new window
             keys.append(eng.local.keys.valid[0 if cur_slot == eng.S - 1 else cur_slot].sum())
-        return frame_ms, valid, coarse, torch.stack(keys).cpu().numpy(), step_syncs
+        return frame_ms, valid, coarse, torch.stack(keys).cpu().numpy(), path_syncs
 
     def counted_run(mode):
         """Run A: one wait per frame; the kernel launches, frame times,
@@ -1315,18 +1357,31 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
             kernels.launch_counts[name] = 0
         torch.cuda.reset_peak_memory_stats()
         with _PlainKabsch() if mode == "plain" else contextlib.nullcontext():
-            frame_ms, valid, coarse, keys, step_syncs = drive(eng, stage_syncs=False)
-        return eng, frame_ms, valid, coarse, keys, dict(kernels.launch_counts), step_syncs
+            frame_ms, valid, coarse, keys, path_syncs = drive(eng, stage_syncs=False)
+        return eng, frame_ms, valid, coarse, keys, dict(kernels.launch_counts), path_syncs
 
-    def summary(mode, frame_ms, coarse, launches, step_syncs):
+    def summary(mode, frame_ms, coarse, launches, path_syncs):
         return {"mode": mode,
                 "frame_ms_median": statistics.median(frame_ms),
                 "frame_ms_max": max(frame_ms[1:]),
                 "frame_step_host_ms_median": statistics.median(coarse["frame_step"]) * 1e3,
-                "syncs_per_frame_mean": statistics.fmean(step_syncs),
-                "syncs_per_frame_max": max(step_syncs),
+                "tsdf_host_ms_median": statistics.median(coarse["tsdf"]) * 1e3,
+                "render_host_ms_median": statistics.median(coarse["render"]) * 1e3,
+                # host waits of the whole per-frame path (step, TSDF, render)
+                "syncs_per_frame_mean": statistics.fmean(path_syncs),
+                "syncs_per_frame_max": max(path_syncs),
                 "launches": launches,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def digest(eng):
+        """Checksums of every table tensor and of the last render: what
+        the graph and the eager runs must give bit for bit."""
+        from bundlefusion_tpu_torch.pipeline.online import _checksum
+
+        out = {f"table.{f.name}": _checksum(getattr(eng.table, f.name)).tolist()
+               for f in dataclasses.fields(eng.table)}
+        out.update({f"render.{k}": _checksum(v).tolist() for k, v in eng.last_render.items()})
+        return out
 
     def staged_run(plain):
         """Run B (eager): a wait around every stage, the probe on: stage
@@ -1429,8 +1484,10 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
     if not med_err < 2 * eng.tsdf_params.voxel_size:
         raise AssertionError(f"render median |depth - GT| {med_err} m >= 2 voxels")
     if any(syncs_a):
-        raise AssertionError(f"a replayed frame step made the host wait: {syncs_a}")
+        raise AssertionError(f"a replayed per-frame path made the host wait: {syncs_a}")
     final_graph = np.stack(eng.sift_world)
+    digest_graph = digest(eng)
+    recaptures = eng.fusion_recaptures
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1443,11 +1500,12 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
             raise AssertionError(f"validity flags differ between the graph run and a {mode} "
                                  f"run: {valid} {v}")
         in_turns.append(summary(mode, ms, coarse, la, syncs))
-        runs.setdefault(mode, (eng.timing, coarse, np.stack(eng.sift_world), la, syncs))
+        runs.setdefault(mode, (eng.timing, coarse, np.stack(eng.sift_world), la, syncs,
+                               digest(eng)))
         del eng
         gc.collect()   # the engine holds reference cycles: free its memory before the next
         torch.cuda.empty_cache()
-    eager_log, coarse_e, final_eager, launches_e, syncs_e = runs["eager"]
+    eager_log, coarse_e, final_eager, launches_e, syncs_e, digest_eager = runs["eager"]
     host_ms_p = _stage_ms(runs["plain"][0], runs["plain"][1])
     ate_p, _ = evaluate_ate_rmse(runs["plain"][2], gt[:n_frames])
     launches_p = runs["plain"][3]
@@ -1458,6 +1516,10 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
     if not graph_equals_eager:
         raise AssertionError("the chained poses of the graph and the eager run differ: "
                              f"{np.abs(final_graph - final_eager).max()}")
+    differ = sorted(k for k in digest_graph if digest_graph[k] != digest_eager[k])
+    if differ:
+        raise AssertionError(f"the graph and the eager run's tables / last renders differ: "
+                             f"{differ}")
     if any(launches_p[k] != launches[k] for k in TSDF_KERNELS) or launches_p["kabsch_filter"]:
         raise AssertionError(f"plain run launches {launches_p} against {launches}")
     staged_p, valid_bp = staged_run(plain=True)
@@ -1500,7 +1562,8 @@ def phase_frontend(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_F
         # validity flags in every run, the graph's and the eager run's chained
         # poses bit for bit, their launches equal
         "graph_vs_eager": {"valid_equal": True, "poses_bitwise_equal": graph_equals_eager,
-                           "in_turns": in_turns},
+                           "table_and_render_bitwise_equal": True,
+                           "fusion_recaptures": recaptures, "in_turns": in_turns},
         # the greedy filter's plain version (eager)
         "plain_filter": {
             "valid_equal": True,
@@ -1543,8 +1606,7 @@ def phase_engine(dev, seq, gt, app, bundling=None, sift_cfg=None, n_frames=N_FRA
         eng.timing.sync = _sync if stage_syncs else None
         checker = None
         if check_apply:
-            checker = _CheckedApply(eng)
-            eng._apply_tsdf_ops = checker
+            checker = _check_apply(eng)
         if wrap_boundary is not None:
             eng._submap_step = wrap_boundary(eng._submap_step)
         frame_ms = []
@@ -1975,8 +2037,10 @@ def _phase_recorded_body(dev, seq, gt, app, bundling, sift_cfg, n_frames, page_f
 
     # ---- 5. paging with natural sweeps; a checkpoint midway ----
     radius = PAGE_RADIUS_M
+    # a paged-key array the run outgrows: the fusion graphs are captured
+    # again when it grows
     paging = dict(streaming_enabled=True, streaming_radius=radius,
-                  streaming_every=PAGE_EVERY)
+                  streaming_every=PAGE_EVERY, streaming_blocked_cap=PAGE_BLOCKED_CAP)
     sweeps = []
 
     def counted(fn, key):
@@ -2031,9 +2095,16 @@ def _phase_recorded_body(dev, seq, gt, app, bundling, sift_cfg, n_frames, page_f
                      "sweeps": sweeps, "host_blocks_end": len(pag.host_blocks),
                      "live_blocks_end": len(unbroken["payload"]),
                      "alloc_failures": int(pag.table.num_alloc_failures),
-                     "reint_frames": pag.reint_frames}
+                     "reint_frames": pag.reint_frames,
+                     # the fusion graphs captured again because the paged-key
+                     # array grew (it is read by address)
+                     "fusion_recaptures": pag.fusion_recaptures,
+                     "blocked_capacity": int(pag._blocked_dev.shape[0])}
     if not any(s.get("out", 0) > 0 for s in sweeps):
         raise AssertionError(f"no natural sweep paged a block out: {sweeps}")
+    if dev.type == "cuda" and not out["paging"]["fusion_recaptures"]:
+        raise AssertionError(f"the paged-key array grew to {out['paging']['blocked_capacity']} "
+                             f"and no fusion graph was captured again")
     if any(inv.values()) or int(pag.table.num_alloc_failures):
         raise AssertionError(f"paging run: invariants {inv}, alloc failures "
                              f"{int(pag.table.num_alloc_failures)}")
@@ -2508,8 +2579,7 @@ def _large_table(dev) -> dict:
     seq = make_sequence_wire(PAN_FRAMES, intr=intr, scene=room_scene(dev), poses=gt,
                              device=dev)
     eng = BundleFusion(intr, app, bundling, max_keyframes=PAN_FRAMES // 10 + 2, device=dev)
-    checker = _CheckedApply(eng, min_rows=PAN_MIN_ROWS)
-    eng._apply_tsdf_ops = checker
+    checker = _check_apply(eng, min_rows=PAN_MIN_ROWS)
     for name in kernels.launch_counts:
         kernels.launch_counts[name] = 0
     t0 = time.perf_counter()
@@ -2559,8 +2629,7 @@ def phase_capacity(dev, boundary_g=640, per_pair=25, overflow=CAPACITY_OVERFLOW)
         checkers = []
 
         def hook(eng):
-            checkers.append(_CheckedApply(eng))
-            eng._apply_tsdf_ops = checkers[-1]
+            checkers.append(_check_apply(eng))
             for name in kernels.launch_counts:
                 kernels.launch_counts[name] = 0
 
@@ -2639,21 +2708,24 @@ def phase_capacity(dev, boundary_g=640, per_pair=25, overflow=CAPACITY_OVERFLOW)
 
 
 BENCH_TIMEOUT_S = 400   # the bench command's time limit (its child is killed then)
-# the bench with ``_frame_step`` run eagerly (the engine's private switch):
-# ``python -c EAGER_BENCH --cache DIR``
+# the bench with ``_frame_step`` and the fusion programs run eagerly (the
+# engine's private switches): ``python -c EAGER_BENCH --cache DIR``
 EAGER_BENCH = """import sys
 from bundlefusion_tpu_torch.pipeline import online
 online.BundleFusion._eager_frame_step = True
+online.BundleFusion._eager_fusion = True
 from bundlefusion_tpu_torch import bench
 bench.main(sys.argv[1:])
 """
 # ... and with the greedy filter's plain version patched in (the package has
-# no switch for it; it reads the card, so the step runs eagerly)
+# no switch for it; it reads the card, so the step runs eagerly, and the
+# fusion with it)
 PLAIN_BENCH = """import sys
 from bundlefusion_tpu_torch.ops import filters
 from bundlefusion_tpu_torch.pipeline import frontend, online
 frontend.kabsch_filter = filters.kabsch_filter_ref
 online.BundleFusion._eager_frame_step = True
+online.BundleFusion._eager_fusion = True
 from bundlefusion_tpu_torch import bench
 bench.main(sys.argv[1:])
 """

@@ -316,3 +316,57 @@ def test_image_index_out_of_range_raises(setup, entry, img):
     with pytest.raises(ValueError):
         fn(tt, _t(D), _t(C), _t(P), [1.0, 1.0, 1.0], img, TINTR, TPARAMS)
     assert torch.equal(tt.weight, before.weight)
+
+
+@pytest.mark.parametrize("entry", ["ref", "culled"])
+@pytest.mark.parametrize("signs,img", [
+    ([1.0, 1.0, -1.0], [0, 1, 0]),
+    ([-1.0, 1.0, 0.0, -0.0, 1.0], [0, 0, 1, 2, 2]),
+])
+def test_device_op_table_equals_host_lists(setup, entry, signs, img):
+    """The op table as tensors on the table's device (as the engine's
+    fusion programs compute it; read there, never on the host) gives the
+    host lists' tables bit for bit, in the plain full sweep and in the
+    culled plain stages, and the JAX twin's within the file's limits."""
+    jt, tt, D, C, P = setup
+    poses = P[np.asarray(img)].copy()
+    poses[1::2, 0, 3] += 0.02
+    run = {"ref": apply_ops.apply_tsdf_ops_ref,
+           "culled": lambda *a: apply_ops._apply_culled(*a, apply_ops.PLAIN_STAGES)}[entry]
+    out = []
+    for s, i in ((signs, img), (_t(signs, torch.float32), _t(img, torch.int32))):
+        t = tt.clone()
+        run(t, _t(D), _t(C), _t(poses), s, i, TINTR, TPARAMS)
+        out.append(t)
+    for name in ("sdf", "weight", "color"):
+        assert torch.equal(getattr(out[0], name).view(torch.int32),
+                           getattr(out[1], name).view(torch.int32)), name
+    jr = japply.apply_tsdf_ops_xla(jt, jnp.asarray(D), jnp.asarray(C), jnp.asarray(poses),
+                                   jnp.asarray(signs, jnp.float32),
+                                   jnp.asarray(img, jnp.int32), INTR, PARAMS)
+    _assert_payload(jr, out[1])
+    assert float(out[1].weight.max()) > 0
+
+
+@pytest.mark.parametrize("entry", ["ref", "culled", "rows"])
+def test_device_image_index_out_of_range_skips_the_op(setup, entry):
+    """An image index out of range in a device op table is not read on the
+    host: the op is skipped, as the kernels skip it, which is sign 0."""
+    _, tt, D, C, P = setup
+    run = {"ref": apply_ops.apply_tsdf_ops_ref,
+           "culled": lambda *a: apply_ops._apply_culled(*a, apply_ops.PLAIN_STAGES),
+           "rows": None}[entry]
+    bad = (_t([1.0, 1.0, -1.0], torch.float32), _t([0, 5, -2], torch.int32))
+    skip = (_t([1.0, 0.0, 0.0], torch.float32), _t([0, 2, 0], torch.int32))
+    out = []
+    for s, i in (bad, skip):
+        t = tt.clone()
+        if run is None:
+            t.sdf, t.weight, t.color = apply_ops.apply_tsdf_ops_rows(
+                t.slot_keys, t.sdf, t.weight, t.color, _t(D), _t(C), _t(P), s, i, TINTR, TPARAMS)
+        else:
+            run(t, _t(D), _t(C), _t(P), s, i, TINTR, TPARAMS)
+        out.append(t)
+    for name in ("sdf", "weight", "color"):
+        assert torch.equal(getattr(out[0], name), getattr(out[1], name)), name
+    assert not torch.equal(out[0].weight, tt.weight)

@@ -40,8 +40,13 @@ within 1e-5 or 1e-4 relative and keep flags equal where the reference is
 well-posed, two calls bit for bit and none waiting. One eager
 ``_frame_step`` runs under ``set_sync_debug_mode("error")``, and 22 frames
 with two boundaries through ``process_frame`` replaying the captured graphs
-equal the same frames run eagerly bit for bit (poses, flags, the window
-after every frame), with the same kernel launches.
+(the frame step's and the fusion programs') equal the same frames run
+eagerly bit for bit (poses, flags, the window, the voxel table and the last
+render after every frame, re-integration frames among them), with the same
+kernel launches. Frames that are not boundaries, fast and re-integration
+ones, run through ``process_frame`` under ``set_sync_debug_mode("error")``.
+The TSDF kernels read their op table from device memory and equal the plain
+versions bit for bit there, an op whose image index is out of range skipped.
 
 Inputs are the apply test's setup (3 synthetic frames at 80x60, 4 cm
 voxels) made by the port's own synthetic module. Limits: the image pass
@@ -146,9 +151,13 @@ def test_launcher_rejects_host_tensors(setup):
         kernels.tsdf_cull_launch(host, w2c, [1.0], [0], dmax, intr, PARAMS, 60, 80)
     with pytest.raises(ValueError):
         kernels.tsdf_prepare_launch(D[:1].cpu(), C[:1].cpu())
-    with pytest.raises(ValueError):  # image index out of range
-        kernels.tsdf_apply_launch(base.clone(), rows, masks, n_rows, packed, w2c, [1.0], [1],
+    # the op table is read on the card: host lists are refused
+    with pytest.raises(ValueError):
+        kernels.tsdf_apply_launch(base.clone(), rows, masks, n_rows, packed, w2c, [1.0], [0],
                                   intr, PARAMS)
+    with pytest.raises(ValueError):
+        kernels.tsdf_cull_launch(base, w2c, [1.0], torch.zeros(1, dtype=torch.int32, device=dev),
+                                 dmax, intr, PARAMS, 60, 80)
 
 
 def test_prepare_matches_plain_bitwise(setup):
@@ -182,8 +191,9 @@ def test_cull_lists_every_row_the_full_sweep_changes(setup, pose_shift):
     w2c = apply_ops.world_to_camera_rows(P)
     packed, dmax = kernels.tsdf_prepare_launch(D, C)
     before = kernels.launch_counts["tsdf_cull"]
-    rows, masks, n_rows = kernels.tsdf_cull_launch(base, w2c, signs, img, dmax, intr, PARAMS,
-                                                   60, 80)
+    rows, masks, n_rows = kernels.tsdf_cull_launch(
+        base, w2c, torch.tensor(signs, device=D.device),
+        torch.tensor(img, dtype=torch.int32, device=D.device), dmax, intr, PARAMS, 60, 80)
     assert kernels.launch_counts["tsdf_cull"] == before + 1
     n = int(n_rows)
     listed = rows[:n].long()
@@ -243,6 +253,51 @@ def test_image_index_out_of_range_raises_on_card(setup):
         apply_ops.apply_tsdf_ops(base.clone(), D, C, P, [1.0, 1.0, 1.0], [0, 3, 1], intr, PARAMS)
 
 
+@pytest.mark.parametrize("signs,img", [
+    ([1.0], [2]),
+    ([-1.0, 1.0] * 5 + [1.0], [0, 0, 1, 1, 2, 2, 0, 0, 1, 1, 2]),
+    ([1.0, -1.0, 1.0], [0, 3, 1]),     # an index out of range: that op is skipped
+    ([-0.0, 0.0, 1.0], [0, -1, 2]),
+], ids=["fast", "rows", "index_out_of_range", "zero_signs"])
+def test_device_op_table_matches_plain_exactly(setup, signs, img):
+    """The op table in device memory, as the engine's fusion programs hand
+    it over: the three kernels (and each alone, at the launchers) give the
+    plain versions' tables bit for bit, max_abs_err 0, with no wait."""
+    base, D, C, P, intr = setup
+    dev = D.device
+    idx = torch.tensor(img, device=dev).clamp(0, 2)
+    poses = P[idx].clone()
+    poses[1::2, 0, 3] += 0.02
+    s_dev = torch.tensor(signs, dtype=torch.float32, device=dev)
+    i_dev = torch.tensor(img, dtype=torch.int32, device=dev)
+    k, r, staged = base.clone(), base.clone(), base.clone()
+    apply_ops.apply_tsdf_ops(base.clone(), D, C, poses, s_dev, i_dev, intr, PARAMS)  # build
+    torch.cuda.synchronize()
+    before = dict(kernels.launch_counts)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        apply_ops.apply_tsdf_ops(k, D, C, poses, s_dev, i_dev, intr, PARAMS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(kernels.launch_counts[n] == before[n] + 1 for n in TSDF_KERNELS)
+    apply_ops.apply_tsdf_ops_ref(r, D, C, poses, s_dev, i_dev, intr, PARAMS)
+    apply_ops._apply_culled(staged, D, C, poses, s_dev, i_dev, intr, PARAMS,
+                            apply_ops.PLAIN_STAGES)
+    torch.cuda.synchronize()
+    for name in ("sdf", "weight", "color"):
+        got, want = getattr(k, name), getattr(r, name)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+        assert torch.equal(getattr(staged, name).view(torch.int32), want.view(torch.int32)), name
+    # an op with an out-of-range index, or sign 0, changes what the same
+    # batch without it gives by nothing
+    keep = [s if 0 <= i < 3 else 0.0 for s, i in zip(signs, img)]
+    ref2 = base.clone()
+    apply_ops.apply_tsdf_ops_ref(ref2, D, C, poses, keep, [min(max(i, 0), 2) for i in img],
+                                 intr, PARAMS)
+    assert torch.equal(ref2.weight, r.weight)
+    assert not torch.equal(k.weight, base.weight)
+
+
 def _frame_step_run(device, n=3):
     """``n`` frames of the 160x120 synthetic orbit through ``_frame_step``
     at the small configuration: per frame (T_world, valid) on the host."""
@@ -267,7 +322,7 @@ def _frame_step_run(device, n=3):
     for f in range(n):
         T, v = eng._frame_step(seq["depth"][f], seq["color"][f], f, f)
         assert T.device.type == torch.device(device).type
-        out.append(eng._read_pose(T, v))
+        out.append((T.cpu().numpy(), bool(v)))
     return out
 
 
@@ -814,24 +869,42 @@ def _window_snapshot(eng):
     return snap
 
 
+def _table_sums(table):
+    """Per table tensor a checksum of its bits (the engine's own)."""
+    import dataclasses
+
+    from bundlefusion_tpu_torch.pipeline.online import _checksum
+
+    return {f.name: _checksum(getattr(table, f.name)).cpu()
+            for f in dataclasses.fields(table)}
+
+
 def _graph_or_eager_run(eager):
+    """22 frames through ``process_frame``, the frame step and the fusion
+    programs replayed from their graphs or, with ``eager``, both run
+    eagerly: per frame the pose and validity, the window, the table's
+    checksums and the last render; the launches; the engine after
+    ``finish``."""
     from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
 
     seq = make_sequence_wire(GRAPH_FRAMES, intr=default_intrinsics(160, 120))
     eng = _small_engine("cuda", submap_size=10)
-    eng._eager_frame_step = eager
+    eng._eager_frame_step = eng._eager_fusion = eager
     eng.warmup()
     assert len(eng._graphs) == (0 if eager else eng.S)
+    assert set(eng._fusion) == (set() if eager else {"fast", "rows", "render"})
     for k in kernels.launch_counts:
         kernels.launch_counts[k] = 0
-    poses, snaps = [], []
+    poses, snaps, tables, renders = [], [], [], []
     for f in range(GRAPH_FRAMES):
         out = eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
         poses.append((out["pose"].cpu(), out["valid"].cpu()))
         snaps.append(_window_snapshot(eng))
+        tables.append(_table_sums(eng.table))
+        renders.append({k: v.cpu() for k, v in eng.last_render.items()})
     launches = dict(kernels.launch_counts)
     eng.finish(extra_solves=1)
-    return eng, poses, snaps, launches
+    return eng, poses, snaps, launches, tables, renders
 
 
 @pytest.fixture(scope="module")
@@ -848,7 +921,7 @@ def test_graph_replay_equals_eager_bitwise(graph_and_eager_runs):
     """22 frames and 2 boundaries, process_frame replaying the captured
     graphs and running the step eagerly: every frame's pose and validity,
     and the window after it, are the same bits."""
-    (g_eng, g_poses, g_snaps, _), (e_eng, e_poses, e_snaps, _) = graph_and_eager_runs
+    (g_eng, g_poses, g_snaps, *_), (e_eng, e_poses, e_snaps, *_) = graph_and_eager_runs
     # two boundaries, and the trailing window that finish() solves
     assert g_eng.num_keyframes == e_eng.num_keyframes == 3
     assert g_eng.frame_valid == e_eng.frame_valid and all(g_eng.frame_valid)
@@ -861,8 +934,95 @@ def test_graph_replay_equals_eager_bitwise(graph_and_eager_runs):
 
 
 def test_launch_counts_under_replay_equal_eager(graph_and_eager_runs):
-    (_, _, _, g_launches), (_, _, _, e_launches) = graph_and_eager_runs
+    (_, _, _, g_launches, *_), (_, _, _, e_launches, *_) = graph_and_eager_runs
     assert g_launches == e_launches
     # one filter launch of each kind per frame with a live pair, plus the
     # boundaries' global matches
     assert g_launches["kabsch_filter"] == g_launches["surface_area"] >= GRAPH_FRAMES - 1
+    # each TSDF kernel once per frame (the warm-up's launches were not counted)
+    assert all(g_launches[k] == GRAPH_FRAMES for k in TSDF_KERNELS)
+
+
+def test_fusion_graphs_equal_eager_bitwise(graph_and_eager_runs):
+    """The same 22 frames with re-integration: after every frame the voxel
+    table (every tensor) and the last render are the same bits whether the
+    fusion programs replay their graphs or run eagerly."""
+    g, e = graph_and_eager_runs
+    g_eng, e_eng = g[0], e[0]
+    assert g_eng.reint_frames == e_eng.reint_frames > 0
+    assert g_eng.reint_ops_total == e_eng.reint_ops_total
+    assert g_eng.fusion_recaptures == 0
+    for f, (gt, et) in enumerate(zip(g[4], e[4])):
+        for name in gt:
+            assert torch.equal(gt[name], et[name]), (f, name)
+    for f, (gr, er) in enumerate(zip(g[5], e[5])):
+        for name in gr:
+            assert torch.equal(_bits(gr[name]), _bits(er[name])), (f, name)
+    for name in _table_sums(g_eng.table):
+        a, b = getattr(g_eng.table, name), getattr(e_eng.table, name)
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+def test_process_frame_waits_for_nothing_on_fast_and_rows_frames(setup):
+    """With the programs captured (``warmup``), a frame that is not a
+    boundary reads nothing back and waits for nothing: frames 11-15 of the
+    orbit (windows of 10; the boundary at frame 10 pushes optimized poses,
+    so some of them re-integrate) through ``process_frame`` under
+    ``set_sync_debug_mode("error")``, fast and rows frames among them."""
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+
+    seq = make_sequence_wire(16, intr=default_intrinsics(160, 120))
+    eng = _small_engine("cuda", submap_size=10)
+    eng.warmup()
+    for f in range(11):
+        eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+    kinds = []
+    for f in range(11, 16):
+        handle = eng.upload_frame(seq["depth"][f], seq["color"][f])
+        rows_before = eng.reint_frames
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng.process_frame(handle)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        kinds.append("rows" if eng.reint_frames > rows_before else "fast")
+        assert bool(out["valid"]) and torch.isfinite(eng.last_render["depth"]).any()
+    assert {"fast", "rows"} <= set(kinds), kinds
+
+
+def _paging_run(eager):
+    """16 frames with host paging (radius 1.2 m, a sweep every 3 frames) and
+    a paged-key array of 16 entries, which the first sweep after the
+    boundary at frame 10 outgrows."""
+    import dataclasses
+
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+    from bundlefusion_tpu_torch.pipeline.online import BundleFusion
+    from bundlefusion_tpu_torch.scripts import common
+
+    intr, app, bund, sift = common.small_config(submap_size=10)
+    app = dataclasses.replace(app, streaming_enabled=True, streaming_radius=1.2,
+                              streaming_every=3, streaming_blocked_cap=16)
+    seq = make_sequence_wire(16, intr=intr)
+    eng = BundleFusion(intr, app, bund, sift_cfg=sift, max_keyframes=8, device="cuda")
+    eng._eager_frame_step = eng._eager_fusion = eager
+    eng.warmup()
+    for f in range(16):
+        eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+    return eng
+
+
+def test_grown_paged_keys_recapture_the_fusion_graphs(setup):
+    """The paged-key array grows (a new tensor): the fusion graphs, which
+    read it by address, are captured again at their next use, and the
+    table, the host blocks and the poses equal an eager run's bit for bit."""
+    g, e = _paging_run(False), _paging_run(True)
+    assert g._blocked_dev.shape[0] > 16 and len(g.host_blocks) > 0
+    assert g.fusion_recaptures > 0 and e.fusion_recaptures == 0
+    assert torch.equal(g._blocked_dev, e._blocked_dev)
+    assert sorted(g.host_blocks.blocks) == sorted(e.host_blocks.blocks)
+    assert g.frame_valid == e.frame_valid
+    for name in _table_sums(g.table):
+        assert torch.equal(_bits(getattr(g.table, name)), _bits(getattr(e.table, name))), name
+    np.testing.assert_array_equal(np.stack(g.sift_world), np.stack(e.sift_world))

@@ -1,5 +1,5 @@
-"""The state that ``_frame_step`` reads and writes keeps its storage, on the
-CPU, and nothing in the step waits for the card.
+"""The state that the captured programs read and write keeps its storage,
+on the CPU, and nothing in them waits for the card.
 
 On the card ``process_frame`` replays ``_frame_step`` as a CUDA graph
 captured once per window slot, and a graph reads and writes the tensors it
@@ -10,6 +10,13 @@ storage for the engine's life: through frames, boundaries and their
 rollovers, ``warmup`` and a checkpoint's ``save`` -> ``load``. The engine is
 driven at the small configuration over 25 frames, with windows of 10: two
 boundaries, two rollovers.
+
+The fusion programs (``_tsdf_fast``, ``_tsdf_rows``, the render) are
+captured the same way and read and write the voxel table, and read the
+sorted array of paged-out keys: every table tensor keeps its storage
+through frames, boundaries, re-integration and its garbage collection, and,
+with host paging on, through stream sweeps and ``save`` -> ``load``, and so
+does the paged-key array while it has room.
 
 And a capture fails on anything that waits for the card. The step is run
 under a dispatch mode that sees every operator it calls, on the CPU: none
@@ -60,8 +67,17 @@ def frame_state(eng) -> dict:
     return out
 
 
+def fusion_state(eng) -> dict:
+    """Every tensor the fusion programs read or write that outlives them,
+    by name: the voxel table's and, with paging on, the paged-key array."""
+    out = {f"table.{f.name}": getattr(eng.table, f.name) for f in dataclasses.fields(eng.table)}
+    if eng._blocked_dev is not None:
+        out["blocked"] = eng._blocked_dev
+    return out
+
+
 def _ptrs(eng) -> dict:
-    return {k: t.data_ptr() for k, t in frame_state(eng).items()}
+    return {k: t.data_ptr() for k, t in {**frame_state(eng), **fusion_state(eng)}.items()}
 
 
 @pytest.fixture(scope="module")
@@ -92,11 +108,14 @@ def test_state_keeps_its_storage_through_frames_and_boundaries(driven):
     assert eng.num_keyframes == 2 and len(eng.boundary_stats) == 2
     # the open window's frames are recorded at its boundary
     assert eng.frame_valid == [True] * (2 * SUBMAP + 1)
-    assert set(built) == set(per_frame[0]) and len(built) == 23
+    # the window, the archive and the anchor pose (23), the table (11)
+    assert set(built) == set(per_frame[0]) and len(built) == 34
+    # re-integration ran, and with it the garbage collection of row frames
+    assert eng.reint_frames > 0
     for f, ptrs in enumerate(per_frame):
         moved = [k for k in built if ptrs[k] != built[k]]
         assert not moved, (f, moved)
-    assert eng._graphs == {}   # the CPU runs the step eagerly
+    assert eng._graphs == {} and eng._fusion == {}   # the CPU runs them eagerly
 
 
 def test_loaded_engine_keeps_its_storage(driven, seq, monkeypatch):
@@ -181,8 +200,10 @@ _WAITS = ("_local_scalar_dense", "nonzero", "eigh", "masked_select", "unique",
 
 class _WaitFinder(TorchDispatchMode):
     """Records every operator that would wait for the card, unless paused.
-    ``lift_fresh`` of a host array (not of a 0-d scalar, which goes to the
-    card as a kernel argument) is a blocking copy to the card. It sees the
+    ``lift_fresh`` of a host array is a blocking copy to the card; a 0-d
+    scalar goes to the card as a kernel argument (a fill), unless it is
+    copied as a tensor: set into one element (``copy_``) or scattered
+    (``index_put_``), which copies it to the card and waits. It sees the
     operators the step calls, not the ones they call inside: the card's own
     check is ``torch.cuda.set_sync_debug_mode("error")`` in
     ``tests/test_torch_cuda.py``."""
@@ -192,6 +213,7 @@ class _WaitFinder(TorchDispatchMode):
         self.paused = False
         self.found = []
         self.ops = 0
+        self.scalars = []   # 0-d tensors lifted from host scalars (kept alive: ids stay unique)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -199,7 +221,13 @@ class _WaitFinder(TorchDispatchMode):
             self.ops += 1
             name = str(func)
             waits = any(w in name for w in _WAITS)
-            waits |= "lift_fresh" in name and isinstance(out, torch.Tensor) and out.dim() > 0
+            lifted = "lift_fresh" in name and isinstance(out, torch.Tensor)
+            waits |= lifted and out.dim() > 0
+            if lifted and out.dim() == 0:
+                self.scalars.append(out)
+            src = args[1] if name.startswith("aten.copy_") else (
+                args[2] if name.startswith("aten.index_put") else None)
+            waits |= src is not None and any(src is t for t in self.scalars)
             # a boolean mask as an index is a nonzero inside the operator
             waits |= name.startswith("aten.index") and any(
                 isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8)
@@ -235,3 +263,69 @@ def test_frame_step_calls_nothing_that_waits_for_the_card(seq, monkeypatch):
         T, valid = eng._frame_step(depth, color, 3, slot)
     assert finder.ops > 1000 and finder.found == []
     assert bool(valid) and T.shape == (4, 4)
+
+
+def test_paging_keeps_the_table_and_paged_keys_storage(seq, tmp_path, monkeypatch):
+    """Host paging on: natural sweeps page blocks out and back, a sweep is
+    forced from far away (everything out), and the engine is saved and
+    loaded with its host blocks; the table's tensors and the paged-key
+    array keep their storages through all of it."""
+    intr, app, bund, sift = common.small_config(submap_size=SUBMAP)
+    app = dataclasses.replace(app, streaming_enabled=True, streaming_radius=1.2,
+                              streaming_every=3)
+    eng = BundleFusion(intr, app, bund, sift_cfg=sift, max_keyframes=8, device="cpu")
+    built = _ptrs(eng)
+    eng.warmup()
+    paged = []
+    for f in range(N_FRAMES):
+        eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+        paged.append(len(eng.host_blocks))
+        assert _ptrs(eng) == built, f
+    assert max(paged) > 0
+    far = np.eye(4, dtype=np.float32)
+    far[:3, 3] = 50.0
+    eng.sift_world.append(far)
+    eng._stream_update()
+    eng.sift_world.pop()
+    assert len(eng.host_blocks) > 0 and int((eng.table.slot_keys != 2**31 - 1).sum()) == 0
+    assert _ptrs(eng) == built
+    path = str(tmp_path / "paged.npz")
+    eng.save(path)
+
+    loaded_built = []
+    init = BundleFusion.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        loaded_built.append(_ptrs(self))
+
+    monkeypatch.setattr(BundleFusion, "__init__", recording_init)
+    back = BundleFusion.load(path, device="cpu")
+    monkeypatch.undo()
+    assert len(back.host_blocks) == len(eng.host_blocks)
+    assert _ptrs(back) == loaded_built[0]
+    assert torch.equal(back._blocked_dev, eng._blocked_dev)
+
+
+def test_fusion_programs_call_nothing_that_waits_for_the_card(seq):
+    """``_tsdf_fast``, ``_tsdf_rows`` (every row mode) and the render, on
+    device tensors, under the dispatch mode: nothing that waits."""
+    eng = _engine()
+    for f in range(3):
+        eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+    T = eng.submap_base @ eng.local.rel[2]
+    valid = eng.local.valid[2].clone()
+    eye = np.eye(4, dtype=np.float32).reshape(-1)
+    rows = np.zeros((5, 34), np.float32)
+    for i, (fid, mode) in enumerate(((0, 1), (1, 2), (2, 3), (0, 0), (1, 2))):
+        rows[i, :2] = fid, mode
+        rows[i, 2:18] = rows[i, 18:34] = eye
+    rows = torch.from_numpy(rows)
+    slot = torch.tensor([2])
+    finder = _WaitFinder()
+    with finder:
+        eng._tsdf_fast(slot, T, valid)
+        eng._tsdf_rows(rows, slot, T, valid)
+        out = eng._render(eng.table, T)
+    assert finder.ops > 500 and finder.found == []
+    assert torch.isfinite(out["depth"]).any()
