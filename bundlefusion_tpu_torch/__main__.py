@@ -273,6 +273,7 @@ def main(argv=None):
         fh.write(json.dumps(verdict, indent=1))
     print(json.dumps(verdict))
     eng.timing.print_all_timings()
+    print("map staleness: " + json.dumps(eng.staleness()))
     return 0 if valid_run else 1
 
 

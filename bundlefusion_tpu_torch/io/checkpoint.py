@@ -239,4 +239,7 @@ def load_engine(path: str, mesh=None, device=None):
         r.optimized_transform = oT.copy() if np.isfinite(oT).all() else None
         recs.append(r)
     eng.traj_manager.records = recs
+    # the staleness counters start at the resume: revisions the checkpoint
+    # left waiting count from here
+    eng.traj_manager.revision = max(eng.frame_idx - 1, 0)
     return eng

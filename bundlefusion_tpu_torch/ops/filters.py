@@ -33,6 +33,7 @@ from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
 from bundlefusion_tpu_torch.geometry.kabsch import _horn_rotation, sym3_eigenvalues
 from bundlefusion_tpu_torch.geometry.lie import _rt_to_mat, pose_inverse
 from bundlefusion_tpu_torch.ops.resample import onehot_gather2d
+from bundlefusion_tpu_torch.utils import read_host
 
 PIXEL_DIST_THRESH = 5.0        # MATCH_FILTER_PIXEL_DIST_THRESH (cuda_kabsch.h:278)
 CONDITION_THRESH = 100.0       # KABSCH_CONDITION_THRESH (cuda_kabsch.h:279)
@@ -154,7 +155,7 @@ def kabsch_filter_ref(src_pts, tgt_pts, pix_src, pix_tgt, valid, max_filtered: i
         """One device -> host read of several ``.any()`` flags."""
         nonlocal host_reads
         host_reads += 1
-        return torch.stack([f.any() for f in flags]).tolist()
+        return read_host(torch.stack([f.any() for f in flags]), counted=False)
 
     host_reads = 0
     inlier = torch.zeros((P, R), dtype=torch.bool, device=dev)

@@ -43,7 +43,7 @@ from bundlefusion_tpu_torch.solver.gn_pcg import (
     sort_corrs_by_pair,
 )
 from bundlefusion_tpu_torch.solver.residuals import CorrStore
-from bundlefusion_tpu_torch.utils import read_host
+from bundlefusion_tpu_torch.utils import read_host, timing
 
 __all__ = ["AXIS", "Mesh", "make_mesh", "shard_rows", "shard_corrs", "make_replicated_chunk_solver",
            "solve_sparse_sharded", "match_descriptors_sharded"]
@@ -93,6 +93,7 @@ def _pair_gather_gn(poses, free_f, sc, mesh: Mesh, params: SolverParams, w_sqrt:
     # all num_gn steps run: after the early-out ``done`` freezes the poses,
     # as the JAX loop does
     for _ in range(params.num_gn):
+        timing.count("gn_steps")
         H, b = build_sparse_pair_system(poses, sc, w_sqrt, n_live=n_live)
         # the one collective per GN step: [P_local, 156] blocks from each rank
         Hb = all_gather(mesh, torch.cat([H.reshape(-1, 144), b], 1))

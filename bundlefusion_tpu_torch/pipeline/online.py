@@ -42,7 +42,15 @@ Port of ``bundlefusion_tpu/pipeline/online.py``:
   frame 0 drains the device and times each stage behind a device
   synchronisation into ``device_timing`` (``dev_frame_step``, ``dev_tsdf``
   or ``dev_tsdf_rows``, ``dev_render``, ``dev_submap``); ``timing`` takes a
-  ``sync`` callable for the same on every frame.
+  ``sync`` callable for the same on every frame;
+- the span records (``trace`` / ``spans`` / ``counters``): while traced,
+  every stage of ``timing`` and the spans between them (``process_frame``,
+  ``upload_frame``, ``graph_launch``, ``reint_schedule``,
+  ``garbage_collect``, ``boundary``, ``pack_read``, ``retire_one``,
+  ``push_optimized``) are recorded with the host's waits for the card and
+  the solver's Gauss-Newton counters (``utils/timing.py``), and the TSDF
+  rows the sweeps listed are counted on the device; ``staleness`` says how
+  far the map lags the optimized trajectory.
 
 The JAX engine fuses each phase into one jitted program, donates its state
 and retires a boundary's results one submap late to hide TPU dispatch
@@ -145,7 +153,14 @@ from bundlefusion_tpu_torch.tsdf.table import (
     create_table,
     garbage_collect,
 )
-from bundlefusion_tpu_torch.utils import copy_into, host_reads, owned_tensor, read_host
+from bundlefusion_tpu_torch.utils import (
+    copy_into,
+    host_reads,
+    host_wait,
+    owned_tensor,
+    read_host,
+    read_host_numpy,
+)
 from bundlefusion_tpu_torch.utils.timing import TimingLog, stage
 
 REINT_ROWS = 5  # max re-integration rows per frame (2 ops each, budget 10)
@@ -484,13 +499,23 @@ class BundleFusion:
         self.lost_count = 0
         # pair-cap overflow accounting, surfaced per retirement
         self.pairs_dropped_total = 0
-        self.pairs_dropped_max = 0
-        # per boundary: {"g", "host_reads", "prune_rounds"}
+        # per boundary: {"g", "prune_rounds", "host_reads"} (every read from
+        # its revalidation attempt to its pack's read-back), and while the
+        # stage log traces the boundary span's "span_ms", "wait_ms" and
+        # "gn_steps" (None otherwise)
         self.boundary_stats: List[dict] = []
         # re-integration accounting: frames that dispatched the rows path +
-        # total de/re-integration ops
+        # total de/re-integration ops; per re-integrated revised frame, the
+        # frames from the retirement that revised its pose to the sweep
+        # that re-integrated it (``staleness``)
         self.reint_frames = 0
         self.reint_ops_total = 0
+        self.reint_lags: List[int] = []
+        # rows the TSDF sweeps listed, added on the device by every culled
+        # dispatch (the fusion graphs too); ``trace`` reads its change
+        self._rows_swept = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._trace_from = None
+        self._trace_counts: dict = {}
         self.render_every = 1 if app.reconstruction_enabled else 0
         self.last_render = None
 
@@ -507,9 +532,10 @@ class BundleFusion:
 
     # ------------------------------------------------------------------
     def _sync_device(self) -> None:
-        """Wait for the engine's device (nothing to wait for on the CPU)."""
+        """Wait for the engine's device (nothing to wait for on the CPU), as
+        a timed wait (``utils.host_wait``)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            host_wait(lambda: torch.cuda.synchronize(self.device), counted=False, what="syncs")
 
     def _device_stage(self, name: str, on: bool):
         """A stage of the serialized replay (``device_timing``), or nothing."""
@@ -756,7 +782,8 @@ class BundleFusion:
                                    "voxel table was replaced after the frame graphs were "
                                    "captured: the engine updates them in place")
             st["store_slot"].fill_(store_slot)
-            graph.replay()
+            with self.timing.span("graph_launch"):
+                graph.replay()
             for k, n in launched.items():
                 kernels.launch_counts[k] += n
         return st["T_world"].clone(), st["valid"].clone()
@@ -840,7 +867,8 @@ class BundleFusion:
         if entry is None:
             return self._capture_fusion(name)
         graph, launched, _, out = entry
-        graph.replay()
+        with self.timing.span("graph_launch"):
+            graph.replay()
         for k, n in launched.items():
             kernels.launch_counts[k] += n
         return out
@@ -849,7 +877,7 @@ class BundleFusion:
         """Fused multi-op TSDF update of ``self.table`` (in place).
         Ops apply sequentially; sign 0 is an exact no-op."""
         apply_tsdf_ops(self.table, depths, colors, poses, signs, img_of_op,
-                       self.intr_int, self.tsdf_params)
+                       self.intr_int, self.tsdf_params, rows_swept=self._rows_swept)
 
     def _render(self, table, cam_to_world):
         return splat_render(table, self.intr_int, self._as_pose(cam_to_world),
@@ -891,12 +919,13 @@ class BundleFusion:
         :meth:`process_frame` as ``depth`` (with ``color=None``)."""
         if not self._is_root:
             return None, None  # the other ranks of a mesh take no frames
-        depth_u16, color_u8 = self._to_wire(depth, color)
-        d = torch.from_numpy(np.ascontiguousarray(depth_u16).view(np.int16))
-        c = torch.from_numpy(np.ascontiguousarray(color_u8))
-        if self.device.type == "cuda":
-            d = d.pin_memory().to(self.device, non_blocking=True)
-            c = c.pin_memory().to(self.device, non_blocking=True)
+        with self.timing.span("upload_frame", frame=self.frame_idx):
+            depth_u16, color_u8 = self._to_wire(depth, color)
+            d = torch.from_numpy(np.ascontiguousarray(depth_u16).view(np.int16))
+            c = torch.from_numpy(np.ascontiguousarray(color_u8))
+            if self.device.type == "cuda":
+                d = d.pin_memory().to(self.device, non_blocking=True)
+                c = c.pin_memory().to(self.device, non_blocking=True)
         return d, c
 
     def _store_slot(self, f: int) -> int:
@@ -944,11 +973,13 @@ class BundleFusion:
 
     def _push_optimized_to_manager(self):
         """Feed the current complete trajectory to the re-integration
-        scheduler (``TrajectoryManager::updateOptimizedTransform``)."""
+        scheduler (``TrajectoryManager::updateOptimizedTransform``), as
+        revised at the last frame processed."""
         n = len(self.complete_traj)
         poses = np.stack(self.complete_traj) if n else np.zeros((0, 4, 4))
         valid = np.isfinite(poses).all(axis=(1, 2)) if n else np.zeros((0,), bool)
-        self.traj_manager.update_optimized_transforms(poses, valid)
+        self.traj_manager.update_optimized_transforms(poses, valid,
+                                                      revision=max(self.frame_idx - 1, 0))
 
     # ------------------------------------------------------------------
     def _decode_frames(self, fids):
@@ -1014,7 +1045,9 @@ class BundleFusion:
         tensors (the frame program's outputs) or host values; the host
         decides the path and the rows from its own scheduler alone, and
         reads nothing of the card."""
-        rows = self._build_reintegrate_rows() if self.app.integration_enabled else []
+        log = self.timing
+        with log.span("reint_schedule"):
+            rows = self._build_reintegrate_rows() if self.app.integration_enabled else []
         has_cur = store_slot is not None
         if not rows and not has_cur:
             return
@@ -1034,33 +1067,40 @@ class BundleFusion:
         self.reint_frames += 1
         self.reint_ops_total += sum(2 if mode == 2 else 1 for _f, mode, _To, _Tn in rows)
         eye = np.eye(4, dtype=np.float32)
-        packed = np.zeros((R, 34), np.float32)
-        packed[:, 2:18] = eye.reshape(-1)
-        packed[:, 18:34] = eye.reshape(-1)
-        for i, (f, mode, To, Tn) in enumerate(rows):
-            packed[i, 0] = f
-            packed[i, 1] = mode
-            packed[i, 2:18] = To.reshape(-1)
-            packed[i, 18:34] = Tn.reshape(-1)
+        with log.span("reint_schedule"):
+            packed = np.zeros((R, 34), np.float32)
+            packed[:, 2:18] = eye.reshape(-1)
+            packed[:, 18:34] = eye.reshape(-1)
+            for i, (f, mode, To, Tn) in enumerate(rows):
+                packed[i, 0] = f
+                packed[i, 1] = mode
+                packed[i, 2:18] = To.reshape(-1)
+                packed[i, 18:34] = Tn.reshape(-1)
         if has_cur:
             self._set_fusion_inputs(store_slot, T_world, valid, packed)
         else:
             self._set_fusion_inputs(0, eye, False, packed)
         self._run_fusion("rows")
-        for f, mode, To, Tn in rows:
-            if mode == 1:
-                self.traj_manager.mark_deintegrated(f)
-            elif mode == 2:
-                self.traj_manager.mark_deintegrated(f)
-                self.traj_manager.mark_integrated(f, Tn)
-            elif mode == 3:
-                self.traj_manager.mark_integrated(f, Tn)
+        tm = self.traj_manager
+        with log.span("reint_schedule"):
+            for f, mode, To, Tn in rows:
+                if mode == 1:
+                    tm.mark_deintegrated(f)
+                elif mode == 2:
+                    tm.mark_deintegrated(f)
+                    tm.mark_integrated(f, Tn)
+                elif mode == 3:
+                    tm.mark_integrated(f, Tn)
+                revised = tm.take_revised(f)
+                if revised is not None:
+                    self.reint_lags.append(self.frame_idx - revised)
         if self.app.garbage_collection_enabled and any(
             mode in (1, 2) for _, mode, _, _ in rows
         ):
             # de-integration may empty blocks; reclaim them (the fast path
             # never frees, so gc only runs on row frames)
-            garbage_collect(self.table)
+            with log.span("garbage_collect"):
+                garbage_collect(self.table)
 
     def _build_reintegrate_rows(self):
         """Schedule at most ``max_frame_fixes`` de/re-integration ops
@@ -1194,6 +1234,7 @@ class BundleFusion:
             "g": g, "prune_rounds": prune_rounds,
             # + 1: the pack's read-back at retirement
             "host_reads": host_reads["count"] - reads0 + kabsch_reads + 1,
+            "span_ms": None, "wait_ms": None, "gn_steps": None,
         })
         return pack
 
@@ -1498,8 +1539,9 @@ class BundleFusion:
         if self._graphs_on() or self._fusion_graphs_on():
             self._build_programs()
             self._sync_device()
-        self.timing = TimingLog(self.timing.enabled, self.timing.sync)
+        self.timing.reset()
         self.boundary_stats.clear()
+        self.reint_lags.clear()
         self.last_render = None
         return time.perf_counter() - t0
 
@@ -1518,7 +1560,8 @@ class BundleFusion:
         0, which take part in the boundaries only).
         """
         f = self.frame_idx
-        ft = self.timing.new_frame(f)
+        log = self.timing
+        log.frame = f
         # submap slot (with one-frame overlap): frame k*(S-1) is slot S-1 of
         # submap k-1 AND slot 0 of submap k
         sub_len = self.S - 1
@@ -1528,40 +1571,51 @@ class BundleFusion:
         # serialized device-time replay frame: drain the device first, so
         # each stage's synchronised time below is that stage's alone
         prof = self.profile_every > 0 and f > 0 and f % self.profile_every == 0
-        if prof:
-            self._sync_device()
+        with log.span("process_frame"):
+            if prof:
+                self._sync_device()
 
-        with self.timing.stage("time_solve", ft):
-            self._retire_submap()
-            if is_boundary and self.num_keyframes >= self.G and self._is_root:
-                # past keyframe capacity: no rollover will happen, and this
-                # frame's frame step will overwrite the anchor slot; record
-                # the finishing window's chained poses first
-                self._record_window_tail(f)
+            with log.stage("time_solve"):
+                self._retire_submap()
+                if is_boundary and self.num_keyframes >= self.G and self._is_root:
+                    # past keyframe capacity: no rollover will happen, and this
+                    # frame's frame step will overwrite the anchor slot; record
+                    # the finishing window's chained poses first
+                    self._record_window_tail(f)
 
-        T_world_dev = valid_dev = None
-        if self._is_root:
-            T_world_dev, valid_dev = self._frame_tsdf_render(f, ft, depth, color, cur_slot, prof)
+            T_world_dev = valid_dev = None
+            if self._is_root:
+                T_world_dev, valid_dev = self._frame_tsdf_render(f, depth, color, cur_slot, prof)
 
-        if is_boundary:
-            with self.timing.stage("time_submap_step", ft):
-                with self._device_stage("dev_submap", prof):
-                    dispatched = self._dispatch_submap(T_world_dev)
-            self._window_base = f
-            self._anchor_slot = 0 if dispatched else sub_len
+            # the boundary's span: its step and, at the end of this frame, the
+            # retirement of its pack
+            n_stats = len(self.boundary_stats)
+            with log.span("boundary") if is_boundary else nullcontext() as boundary:
+                if is_boundary:
+                    with log.stage("time_submap_step"):
+                        with self._device_stage("dev_submap", prof):
+                            dispatched = self._dispatch_submap(T_world_dev)
+                    self._window_base = f
+                    self._anchor_slot = 0 if dispatched else sub_len
 
-        self.frame_idx += 1
-        # the boundary's pack is read back at once (the JAX engine waits
-        # for a later frame to hide the transfer)
-        with self.timing.stage("time_solve", ft):
-            self._retire_submap()
+                self.frame_idx += 1
+                # the boundary's pack is read back at once (the JAX engine
+                # waits for a later frame to hide the transfer)
+                with log.stage("time_solve"):
+                    self._retire_submap()
+            if boundary is not None and len(self.boundary_stats) > n_stats:
+                rec = boundary.record
+                self.boundary_stats[-1].update(
+                    span_ms=1e-6 * (rec["t1_ns"] - rec["t0_ns"]),
+                    wait_ms=1e-6 * rec["wait_incl_ns"],
+                    gn_steps=rec["counters_incl"].get("gn_steps", 0))
         return {"pose": T_world_dev, "valid": valid_dev}
 
-    def _frame_tsdf_render(self, f: int, ft, depth, color, cur_slot: int, prof: bool):
+    def _frame_tsdf_render(self, f: int, depth, color, cur_slot: int, prof: bool):
         """Rank 0's per-frame path of ``process_frame``: frame step, the
         fused TSDF dispatch, the render, the paging sweep. Returns (T_world,
         valid) on the device."""
-        with self.timing.stage("time_frame_step", ft):
+        with self.timing.stage("time_frame_step"):
             depth_dev, color_dev = depth if color is None else self.upload_frame(depth, color)
             store_slot = self._store_slot(f)
             with self._device_stage("dev_frame_step", prof):
@@ -1576,7 +1630,7 @@ class BundleFusion:
         # fused TSDF dispatch: re-integration budget + current frame's fuse
         # in one kernel sweep (reference order: reintegrate() then
         # integrate(), DepthSensing.cpp:854-902 + :1047)
-        with self.timing.stage("time_re_integrate", ft):
+        with self.timing.stage("time_re_integrate"):
             if self.app.integration_enabled:
                 if prof:
                     # the replay keeps the rows (re-integration) dispatches
@@ -1593,7 +1647,7 @@ class BundleFusion:
                     self._tsdf_dispatch(store_slot, T_world, valid)
 
         if self.render_every and f % self.render_every == 0:
-            with self.timing.stage("time_visualize", ft):
+            with self.timing.stage("time_visualize"):
                 with self._device_stage("dev_render", prof):
                     self._render_frame(f, T_world)
 
@@ -1674,7 +1728,7 @@ class BundleFusion:
             return
         S = self.S
         sub_len = S - 1
-        tail = self._pack_tail().cpu().numpy()
+        tail = read_host_numpy(self._pack_tail(), counted=False)
         world = tail[: S * 16].reshape(S, 4, 4)
         lv = tail[S * 16:] > 0.5
         base = self._window_base
@@ -1694,8 +1748,11 @@ class BundleFusion:
             return False  # capacity reached (reference caps s_maxNumImages)
 
         # relocalization attempt BEFORE the solve so revalidated corrs join
-        # this submap's global solve (tryRevalidation, Bundler.cpp:306-352)
+        # this submap's global solve (tryRevalidation, Bundler.cpp:306-352);
+        # its reads are the boundary's too
+        reads0 = host_reads["count"]
         self._try_revalidation()
+        reads_before = host_reads["count"] - reads0
 
         # periodic corr-store compaction: residual pruning / frame
         # invalidation only MARK corrs dead, so long runs leak append
@@ -1705,15 +1762,24 @@ class BundleFusion:
             compact_corrs(self.glob.corrs)
 
         pack = self._submap_step(g, last_world_dev)
+        self.boundary_stats[-1]["host_reads"] += reads_before
         self.num_keyframes += 1
         self._pending_submaps.append((g, pack))
         return True
 
     def _retire_submap(self):
-        """Consume the packed readbacks of dispatched submaps, in order."""
+        """Consume the packed readbacks of dispatched submaps, in order: each
+        pack read back, retired, and the optimized trajectory it brings pushed
+        to the re-integration scheduler."""
+        log = self.timing
         while self._pending_submaps:
             g, pack = self._pending_submaps.pop(0)
-            self._retire_one(g, pack.cpu().numpy())
+            with log.span("pack_read"):
+                pack = read_host_numpy(pack, counted=False)
+            with log.span("retire_one"):
+                self._retire_one(g, pack)
+            with log.span("push_optimized"):
+                self._push_optimized_to_manager()
 
     def _retire_one(self, g: int, pack: np.ndarray):
         """Per-frame host bookkeeping, keyframe validity, the lost-keyframe
@@ -1728,10 +1794,7 @@ class BundleFusion:
         matched = pack[self._off_flags + 1] > 0.5
         # silent-cap accounting: pairs beyond solver_max_pairs were dropped
         # from this global solve (the reference silently truncates too)
-        dropped = int(pack[self._off_flags + 2])
-        if dropped > 0:
-            self.pairs_dropped_total += dropped
-            self.pairs_dropped_max = max(self.pairs_dropped_max, dropped)
+        self.pairs_dropped_total += int(pack[self._off_flags + 2])
         # keyframes that LOST validity during this solve (residual pruning +
         # comprehensive frame invalidation) queue for relocalization retries
         for k in np.where(prev_kf_valid[: g + 1] & ~self.keyframe_valid[: g + 1])[0]:
@@ -1759,7 +1822,6 @@ class BundleFusion:
         nanT = np.full((4, 4), np.nan, np.float32)
         for i in range(m):
             self.complete_traj[i] = comp[i].astype(np.float32) if comp_ok[i] else nanT
-        self._push_optimized_to_manager()
 
     def _try_revalidation(self):
         """One relocalization attempt per submap: re-match the oldest lost
@@ -1796,7 +1858,8 @@ class BundleFusion:
             n_solved = self.num_keyframes
         kfv = torch.as_tensor(self.keyframe_valid, device=self.device)
         comp, ok = self._compose(self.glob.poses, kfv)
-        flat = torch.cat([comp.reshape(-1), ok.to(torch.float32)]).cpu().numpy()
+        flat = read_host_numpy(torch.cat([comp.reshape(-1), ok.to(torch.float32)]),
+                               counted=False)
         n_comp = comp.shape[0]
         comp, ok = flat[: n_comp * 16].reshape(-1, 4, 4), flat[n_comp * 16:] > 0.5
         m = min(len(self.complete_traj), n_solved * (self.S - 1), n_comp)
@@ -1889,6 +1952,56 @@ class BundleFusion:
         if not self.complete_traj:
             return np.zeros((0, 4, 4), np.float32)
         return np.stack(self.complete_traj)
+
+    # ------------------------------------------------------------------
+    def trace(self, on: bool, profiler_ranges: bool = False) -> None:
+        """Start or stop the stage log's span records (``timing``; with
+        ``profiler_ranges``, each span is also a ``bf.<name>`` range of
+        ``torch.profiler``). Stopping reads, once, the TSDF rows the sweeps
+        listed since the start (``counters``); starting reads nothing. Call
+        it between frames: neither waits for a frame's work, but the stop's
+        read does."""
+        log = self.timing
+        if on and not log.tracing:
+            self._trace_from = (self._rows_swept.clone(), self.frame_idx)
+        elif not on and log.tracing and self._trace_from is not None:
+            rows0, frame0 = self._trace_from
+            rows = read_host(self._rows_swept - rows0, counted=False)[0]
+            self._trace_counts = {"frames": self.frame_idx - frame0, "tsdf_rows": int(rows)}
+            self._trace_from = None
+        log.trace(on, profiler_ranges)
+
+    def spans(self) -> List[dict]:
+        """The span records closed since the last call (``utils.timing``),
+        as plain dicts; forgotten here."""
+        return self.timing.spans()
+
+    def counters(self) -> dict:
+        """The last traced stretch's ``frames`` and ``tsdf_rows`` (rows the
+        TSDF sweeps listed: culled dispatches only, so 0 on the CPU), and the
+        map's staleness now (:meth:`staleness`)."""
+        return {**self._trace_counts, **self.staleness()}
+
+    def staleness(self) -> dict:
+        """How far the map lags the optimized trajectory, in frames: of the
+        frames re-integrated so far after a pose revision, how many
+        (``reintegrated``) and the mean and largest number of frames from
+        the retirement that revised the pose to the sweep that re-integrated
+        it (``lag_frames_mean``, ``lag_frames_max``); and the frames whose
+        revised pose still waits (``backlog``), with the age of the oldest
+        (``backlog_oldest_frames``). Host state only; no read."""
+        tm = self.traj_manager
+        if self.app.integration_enabled:
+            tm.generate_update_lists()   # brings the waiting list up to date
+        lags, waiting = self.reint_lags, tm.revised_at
+        return {
+            "reintegrated": len(lags),
+            "lag_frames_mean": sum(lags) / len(lags) if lags else None,
+            "lag_frames_max": max(lags) if lags else None,
+            "backlog": len(waiting),
+            "backlog_oldest_frames": (max(self.frame_idx - 1, 0) - min(waiting.values())
+                                      if waiting else None),
+        }
 
     # ------------------------------------------------------------------
     def save(self, path: str):

@@ -11,7 +11,12 @@ s_maxFrameFixes=10 operations per frame (``DepthSensing.cpp:854-902``).
 
 Host-side (numpy) by design: this is scheduling logic over a few thousand
 scalars — the reference also runs it on CPU. A copy of
-``bundlefusion_tpu/pipeline/trajectory.py`` (no torch needed).
+``bundlefusion_tpu/pipeline/trajectory.py`` (no torch needed), plus the
+map's staleness: ``revised_at`` holds, for each integrated frame whose
+optimized pose is past the threshold, the ``revision`` (the caller's frame
+index, given with each optimized trajectory) at which it first got there;
+the caller takes a frame out when its row re-integrates it
+(``take_revised``), and a frame back under the threshold leaves by itself.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ class TrajectoryManager:
         self.records: List[FrameRecord] = []
         self.top_n_active = top_n_active
         self.min_pose_dist = min_pose_dist
+        self.revision = 0
+        self.revised_at: dict = {}
 
     def add_frame(self, frame_idx: int, integrated_transform: Optional[np.ndarray]):
         """Register a frame at integration time (None = not integrated /
@@ -61,9 +68,12 @@ class TrajectoryManager:
         else:
             rec.state = FrameState.NOT_INTEGRATED
 
-    def update_optimized_transforms(self, poses: np.ndarray, valid: np.ndarray):
+    def update_optimized_transforms(self, poses: np.ndarray, valid: np.ndarray,
+                                    revision: int = 0):
         """Ingest the latest optimized complete trajectory
-        (``updateOptimizedTransform``, TrajectoryManager.cpp:34-43)."""
+        (``updateOptimizedTransform``, TrajectoryManager.cpp:34-43), made at
+        ``revision``."""
+        self.revision = revision
         n = min(len(self.records), len(poses))
         for i in range(n):
             rec = self.records[i]
@@ -105,8 +115,27 @@ class TrajectoryManager:
             ):
                 integ.append(i)
         reint_scored.sort(reverse=True)
+        self._note_revised([i for _, i in reint_scored])
         reint = [i for _, i in reint_scored[: self.top_n_active]]
         return deint, reint, integ
+
+    def _note_revised(self, above: List[int]) -> None:
+        """``revised_at`` for the frames ``above`` the threshold now: a new
+        one is stamped with the current revision, one no longer above is
+        dropped."""
+        pend = self.revised_at
+        for i in above:
+            if i not in pend:
+                pend[i] = self.revision
+        if len(pend) > len(above):
+            keep = set(above)
+            for i in [i for i in pend if i not in keep]:
+                del pend[i]
+
+    def take_revised(self, frame_idx: int) -> Optional[int]:
+        """The revision at which ``frame_idx``'s pose went past the
+        threshold, if it is waiting; it waits no more."""
+        return self.revised_at.pop(frame_idx, None)
 
     def mark_deintegrated(self, frame_idx: int):
         rec = self.records[frame_idx]

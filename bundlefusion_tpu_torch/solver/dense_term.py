@@ -37,7 +37,7 @@ from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
 from bundlefusion_tpu_torch.geometry.lie import pose_inverse, pose_to_matrix
 from bundlefusion_tpu_torch.ops.resample import onehot_gather2d
 from bundlefusion_tpu_torch.pipeline.frames import DenseCache
-from bundlefusion_tpu_torch.utils import host_reads, onehot_sum
+from bundlefusion_tpu_torch.utils import host_wait, onehot_sum
 
 _PAIR_CHUNK = 16384
 
@@ -97,8 +97,7 @@ def find_overlapping_pairs(poses, frame_valid, cache: DenseCache, intr: CameraIn
     if N * N <= _PAIR_CHUNK:
         counts = overlap_count(ar.repeat_interleave(N), ar.repeat(N)).reshape(N, N)
     else:
-        host_reads["count"] += 1
-        idx = torch.nonzero(cand.reshape(-1))[:, 0]     # waits for the card
+        idx = host_wait(lambda: torch.nonzero(cand.reshape(-1))[:, 0])
         counts = torch.zeros(N * N, dtype=torch.int64, device=dev)
         for s in range(0, idx.shape[0], _PAIR_CHUNK):
             part = idx[s:s + _PAIR_CHUNK]

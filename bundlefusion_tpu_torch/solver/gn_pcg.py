@@ -45,7 +45,7 @@ from torch.func import jvp, vmap
 
 from bundlefusion_tpu_torch.geometry.lie import so3_exp
 from bundlefusion_tpu_torch.solver.residuals import CorrStore
-from bundlefusion_tpu_torch.utils import read_host, segment_sum_sorted
+from bundlefusion_tpu_torch.utils import read_host, segment_sum_sorted, timing
 
 _BIG = 2**31 - 1
 PCG_CHECK_EVERY = 8
@@ -573,6 +573,7 @@ def _dense_reduced_solve(H, b, prob: PresortedProblem, free_f, N: int,
     ``torch.linalg.solve_ex``). A failed factorisation (singular after
     aggressive pruning) must not poison the trajectory: the step becomes no
     update, and is counted (``lu_zero_steps``)."""
+    timing.count("lu_steps")
     Ad, rhs, actf = _assemble_reduced(H, b, prob, free_f, N, A_extra, rhs_extra)
     delta, info = torch.linalg.solve_ex(Ad, rhs[:, None])
     delta = delta.reshape(N, 6) * actf[:, None]
@@ -589,15 +590,19 @@ def _pcg(A, apply_P, rhs, params: SolverParams):
     """Preconditioned conjugate gradients from x = 0: the reference's while
     loop ``k < num_pcg and |rz| > pcg_early_out``. Iterations after the
     condition fails leave the state as it is, so the host only looks at the
-    condition every ``PCG_CHECK_EVERY`` iterations to stop early."""
+    condition every ``PCG_CHECK_EVERY`` iterations to stop early. The
+    iterations enqueued (masked ones included) go to the tracing log's
+    ``pcg_iters`` counter."""
     x = torch.zeros_like(rhs)
     rr = rhs
     z = apply_P(rr)
     p = z
     rz = (rr * z).sum()
+    iters = params.num_pcg
     for k in range(params.num_pcg):
         go = rz.abs() > params.pcg_early_out
         if k % PCG_CHECK_EVERY == 0 and not read_host(go):
+            iters = k
             break
         Ap = A(p)
         pAp = (p * Ap).sum()
@@ -610,14 +615,17 @@ def _pcg(A, apply_P, rhs, params: SolverParams):
         p_n = z_n + beta * p
         x, rr, z, p, rz = (torch.where(go, new, old) for new, old in
                            ((x_n, x), (rr_n, rr), (z_n, z), (p_n, p), (rz_n, rz)))
+    timing.count("pcg_iters", iters)
     return x
 
 
 def _gauss_newton(poses, params: SolverParams, step):
     """``num_gn`` iterations of ``poses <- step(poses, it)``, which returns
     (new poses, max |delta|); stops once a step's max |delta| is under the
-    early-out (one host read per iteration but the last)."""
+    early-out (one host read per iteration but the last). Each step is one
+    on the tracing log's ``gn_steps`` counter."""
     for it in range(params.num_gn):
+        timing.count("gn_steps")
         poses, max_delta = step(poses, it)
         if it + 1 < params.num_gn and read_host(max_delta) < params.gn_early_out_delta:
             break
@@ -626,6 +634,7 @@ def _gauss_newton(poses, params: SolverParams, step):
 
 def _pcg_step(poses, H, rhs, precond, matvec_extra, ps, free_f, n_pairs, params):
     """One PCG linear step on the pair blocks (+ an optional extra operator)."""
+    timing.count("pcg_steps")
     eye = torch.eye(6, device=poses.device) * 1e-6
     # like the reference's, a singular block's inverse is non-finite, not an error
     P_inv = torch.linalg.inv_ex(precond + eye).inverse

@@ -35,6 +35,8 @@ pixel coordinates round half-to-even.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from bundlefusion_tpu_torch.geometry.camera import CameraIntrinsics
@@ -306,7 +308,8 @@ def mask_bits(masks: torch.Tensor, n_ops: int) -> torch.Tensor:
 
 
 def apply_tsdf_ops(table: VoxelBlockTable, depths, colors, poses, signs, img_of_op,
-                   intr: CameraIntrinsics, params: TsdfParams) -> VoxelBlockTable:
+                   intr: CameraIntrinsics, params: TsdfParams,
+                   rows_swept: Optional[torch.Tensor] = None) -> VoxelBlockTable:
     """Apply a batch of (de)integration ops in one in-place pass.
 
     Args:
@@ -326,6 +329,11 @@ def apply_tsdf_ops(table: VoxelBlockTable, depths, colors, poses, signs, img_of_
     entry and return waits for the device, so the op can be captured in a
     CUDA graph (with the op table on the card). A table on the CPU runs the
     plain full sweep.
+
+    ``rows_swept``, an int64 [1] tensor on the table's device, gets the
+    number of rows the cull listed for the sweep added to it on the device
+    (one more node in a captured graph, no read); the CPU's full sweep lists
+    no rows and adds nothing.
     """
     if not table.sdf.is_cuda:
         return apply_tsdf_ops_ref(table, depths, colors, poses, signs, img_of_op,
@@ -333,10 +341,11 @@ def apply_tsdf_ops(table: VoxelBlockTable, depths, colors, poses, signs, img_of_
     from bundlefusion_tpu_torch.kernels import CUDA_STAGES
 
     return _apply_culled(table, depths, colors, poses, signs, img_of_op, intr,
-                         params, CUDA_STAGES)
+                         params, CUDA_STAGES, rows_swept)
 
 
-def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, stages):
+def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, stages,
+                  rows_swept=None):
     """The culled path: image pass, cull, sweep. ``stages`` is the three
     launchers ``(prepare, cull, sweep)``: ``kernels.CUDA_STAGES``, or
     :data:`PLAIN_STAGES` at the same interfaces."""
@@ -350,6 +359,8 @@ def _apply_culled(table, depths, colors, poses, signs, img_of_op, intr, params, 
     packed, img_dmax = prepare(depths.contiguous(), colors.contiguous())
     rows, masks, n_rows = cull(table, w2c, signs, imgs, img_dmax, intr, params, H, W)
     sweep(table, rows, masks, n_rows, packed, w2c, signs, imgs, intr, params)
+    if rows_swept is not None:
+        rows_swept += n_rows
     return table
 
 

@@ -1,9 +1,12 @@
 """Host-side helpers: metrics, timing, and carrying numpy state in."""
 
+import time
 from dataclasses import fields
 
 import numpy as np
 import torch
+
+from bundlefusion_tpu_torch.utils import timing
 
 
 def owned_tensor(array, dtype: torch.dtype, device) -> torch.Tensor:
@@ -38,16 +41,31 @@ def copy_into(dst, src) -> None:
 host_reads = {"count": 0}
 
 
-def read_host(x: torch.Tensor):
-    """The value(s) of a small tensor as Python numbers; counted."""
-    host_reads["count"] += 1
-    return x.tolist()
+def host_wait(fn, counted: bool = True, what: str = "reads"):
+    """``fn()``, a call that blocks the host until the card has caught up
+    (a read-back, a synchronisation): the one place where the engine waits
+    for its device. ``counted`` adds it to ``host_reads``, the count of
+    data-dependent branches; while a ``timing`` log traces, the time blocked
+    and one ``what`` go to its innermost open span."""
+    if counted:
+        host_reads["count"] += 1
+    if timing.active() is None:
+        return fn()
+    t0 = time.perf_counter_ns()
+    try:
+        return fn()
+    finally:
+        timing.waited(time.perf_counter_ns() - t0, what)
 
 
-def read_host_numpy(x: torch.Tensor) -> np.ndarray:
-    """A tensor's values as a numpy array on the host; counted."""
-    host_reads["count"] += 1
-    return x.cpu().numpy()
+def read_host(x: torch.Tensor, counted: bool = True):
+    """The value(s) of a small tensor as Python numbers (:func:`host_wait`)."""
+    return host_wait(x.tolist, counted)
+
+
+def read_host_numpy(x: torch.Tensor, counted: bool = True) -> np.ndarray:
+    """A tensor's values as a numpy array on the host (:func:`host_wait`)."""
+    return host_wait(lambda: x.cpu().numpy(), counted)
 
 
 def segment_sum_sorted(vals: torch.Tensor, seg_ids: torch.Tensor, num_segments: int):

@@ -43,8 +43,10 @@ with two boundaries through ``process_frame`` replaying the captured graphs
 (the frame step's and the fusion programs') equal the same frames run
 eagerly bit for bit (poses, flags, the window, the voxel table and the last
 render after every frame, re-integration frames among them), with the same
-kernel launches. Frames that are not boundaries, fast and re-integration
-ones, run through ``process_frame`` under ``set_sync_debug_mode("error")``.
+kernel launches, and the same TSDF rows counter after every frame, which
+grows by the rows the eager run's culls listed. Frames that are not
+boundaries, fast and re-integration ones, run through ``process_frame``
+under ``set_sync_debug_mode("error")``, with the span records off and on.
 The TSDF kernels read their op table from device memory and equal the plain
 versions bit for bit there, an op whose image index is out of range skipped.
 
@@ -884,8 +886,12 @@ def _graph_or_eager_run(eager):
     programs replayed from their graphs or, with ``eager``, both run
     eagerly: per frame the pose and validity, the window, the table's
     checksums and the last render; the launches; the engine after
-    ``finish``."""
+    ``finish``; the engine's TSDF rows counter after ``warmup`` and after
+    each frame; and, eagerly, the ``n_rows`` the cull returned summed over
+    the frames (the TSDF op run with the same launchers, each cull's
+    ``n_rows`` kept)."""
     from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+    from bundlefusion_tpu_torch.pipeline import online
 
     seq = make_sequence_wire(GRAPH_FRAMES, intr=default_intrinsics(160, 120))
     eng = _small_engine("cuda", submap_size=10)
@@ -895,16 +901,33 @@ def _graph_or_eager_run(eager):
     assert set(eng._fusion) == (set() if eager else {"fast", "rows", "render"})
     for k in kernels.launch_counts:
         kernels.launch_counts[k] = 0
-    poses, snaps, tables, renders = [], [], [], []
-    for f in range(GRAPH_FRAMES):
-        out = eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
-        poses.append((out["pose"].cpu(), out["valid"].cpu()))
-        snaps.append(_window_snapshot(eng))
-        tables.append(_table_sums(eng.table))
-        renders.append({k: v.cpu() for k, v in eng.last_render.items()})
+    listed = []
+
+    def cull(*args):
+        out = kernels.tsdf_cull_launch(*args)
+        listed.append(out[2].clone())
+        return out
+
+    stages = (kernels.tsdf_prepare_launch, cull, kernels.tsdf_apply_launch)
+    real = online.apply_tsdf_ops
+    if eager:
+        online.apply_tsdf_ops = lambda table, *a, rows_swept=None: apply_ops._apply_culled(
+            table, *a, stages, rows_swept)
+    poses, snaps, tables, renders, rows = [], [], [], [], [int(eng._rows_swept)]
+    try:
+        for f in range(GRAPH_FRAMES):
+            out = eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+            poses.append((out["pose"].cpu(), out["valid"].cpu()))
+            snaps.append(_window_snapshot(eng))
+            tables.append(_table_sums(eng.table))
+            renders.append({k: v.cpu() for k, v in eng.last_render.items()})
+            rows.append(int(eng._rows_swept))
+    finally:
+        online.apply_tsdf_ops = real
     launches = dict(kernels.launch_counts)
     eng.finish(extra_solves=1)
-    return eng, poses, snaps, launches, tables, renders
+    n_rows = sum(int(n) for n in listed) if eager else None
+    return eng, poses, snaps, launches, tables, renders, rows, n_rows
 
 
 @pytest.fixture(scope="module")
@@ -963,12 +986,22 @@ def test_fusion_graphs_equal_eager_bitwise(graph_and_eager_runs):
         assert torch.equal(_bits(a), _bits(b)), name
 
 
-def test_process_frame_waits_for_nothing_on_fast_and_rows_frames(setup):
-    """With the programs captured (``warmup``), a frame that is not a
-    boundary reads nothing back and waits for nothing: frames 11-15 of the
-    orbit (windows of 10; the boundary at frame 10 pushes optimized poses,
-    so some of them re-integrate) through ``process_frame`` under
-    ``set_sync_debug_mode("error")``, fast and rows frames among them."""
+def test_fusion_rows_counter_equals_eager_and_the_culls_rows(graph_and_eager_runs):
+    """The rows counter the fusion graphs add to (one captured node) reads,
+    after every frame, what the eager run's reads; over the 22 frames it
+    grew by the ``n_rows`` the eager run's culls returned, summed."""
+    g, e = graph_and_eager_runs
+    assert g[6] == e[6]
+    assert e[6][-1] - e[6][0] == e[7] > 0
+    assert all(b >= a for a, b in zip(e[6], e[6][1:]))
+
+
+def _ordinary_frames_under_sync_error(traced):
+    """Frames 11-15 of the orbit (windows of 10; the boundary at frame 10
+    pushes optimized poses, so some of them re-integrate) through
+    ``process_frame`` with the programs captured, each under
+    ``set_sync_debug_mode("error")``, with the engine's span records on or
+    off; returns the engine."""
     from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
 
     seq = make_sequence_wire(16, intr=default_intrinsics(160, 120))
@@ -976,6 +1009,8 @@ def test_process_frame_waits_for_nothing_on_fast_and_rows_frames(setup):
     eng.warmup()
     for f in range(11):
         eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+    if traced:
+        eng.trace(True, profiler_ranges=True)
     kinds = []
     for f in range(11, 16):
         handle = eng.upload_frame(seq["depth"][f], seq["color"][f])
@@ -989,6 +1024,30 @@ def test_process_frame_waits_for_nothing_on_fast_and_rows_frames(setup):
         kinds.append("rows" if eng.reint_frames > rows_before else "fast")
         assert bool(out["valid"]) and torch.isfinite(eng.last_render["depth"]).any()
     assert {"fast", "rows"} <= set(kinds), kinds
+    return eng
+
+
+def test_process_frame_waits_for_nothing_on_fast_and_rows_frames(setup):
+    """With the programs captured (``warmup``), a frame that is not a
+    boundary reads nothing back and waits for nothing, fast and rows frames
+    among them."""
+    assert _ordinary_frames_under_sync_error(traced=False).spans() == []
+
+
+def test_traced_process_frame_waits_for_nothing(setup):
+    """The same with the span records and their profiler ranges on: every
+    frame's spans are kept, the graph launches among them, and still
+    nothing waits."""
+    eng = _ordinary_frames_under_sync_error(traced=True)
+    spans = eng.spans()
+    eng.trace(False)
+    roots = [s["frame"] for s in spans if s["name"] == "process_frame"]
+    assert roots == list(range(11, 16))
+    launches = [s for s in spans if s["name"] == "graph_launch"]
+    # the frame step's, the TSDF dispatch's and the render's, every frame
+    assert len(launches) == 3 * len(roots)
+    assert all(s["wait_incl_ns"] == 0 for s in spans)
+    assert eng.counters()["frames"] == 5 and eng.counters()["tsdf_rows"] > 0
 
 
 def _paging_run(eager):
