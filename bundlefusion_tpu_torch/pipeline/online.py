@@ -65,10 +65,14 @@ compiled ``tsdf_fast`` / ``tsdf_rows`` / ``_render``) are captured the same
 way, one graph each, and replayed on the frame graph's outputs: the pose and
 validity never leave the card, the op signs are computed there, and a frame
 that is not a boundary reads nothing back. The host decides each frame's
-path and re-integration rows from its own scheduler alone. Every other step
-runs eagerly on the engine's device, state (the voxel table too) is updated
-in place, and a boundary's pack is read back at the end of the frame that
-dispatched it. What the host scheduler ends up with is the same.
+path and re-integration rows from its own scheduler alone. A boundary's
+local bundle adjustment, its dense verification and its keyframe fusion
+are one graph each too (captured at their first use, the warm-up's
+boundary), the solve's Gauss-Newton early-out a mask on the card as in the
+JAX engine's loop. Every other step runs eagerly on the engine's device,
+state (the voxel table too) is updated in place, and a boundary's pack is
+read back at the end of the frame that dispatched it. What the host
+scheduler ends up with is the same.
 """
 
 from __future__ import annotations
@@ -131,6 +135,7 @@ from bundlefusion_tpu_torch.solver.gn_pcg import (
     max_residual_sorted,
     presort_corrs,
     solve_bundle,
+    solve_local,
     solve_sparse,
     solve_sparse_presorted,
 )
@@ -161,7 +166,7 @@ from bundlefusion_tpu_torch.utils import (
     read_host,
     read_host_numpy,
 )
-from bundlefusion_tpu_torch.utils.timing import TimingLog, stage
+from bundlefusion_tpu_torch.utils.timing import TimingLog, count, paused, stage
 
 REINT_ROWS = 5  # max re-integration rows per frame (2 ops each, budget 10)
 # the fused keyframe's fields, in the order a mesh boundary broadcasts them
@@ -445,6 +450,10 @@ class BundleFusion:
         # array grew
         self._fusion: dict = {}
         self.fusion_recaptures = 0
+        # the boundary's local programs: name ("solve", "verify", "fuse") ->
+        # (CUDA graph, its kernel launches, the state addresses it was
+        # captured with, its outputs)
+        self._local_graphs: dict = {}
         # the serialized device-time replay (the reference's CUDATimer): every
         # ``profile_every``-th frame after frame 0 drains the device and
         # times each stage behind a synchronisation into ``device_timing``;
@@ -514,6 +523,10 @@ class BundleFusion:
         # rows the TSDF sweeps listed, added on the device by every culled
         # dispatch (the fusion graphs too); ``trace`` reads its change
         self._rows_swept = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        # local Gauss-Newton steps whose update was applied (not masked by
+        # the early-out), added on the device by every local solve, its
+        # graph's replays too; ``trace`` reads its change
+        self._local_gn_taken = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self._trace_from = None
         self._trace_counts: dict = {}
         self.render_every = 1 if app.reconstruction_enabled else 0
@@ -704,6 +717,7 @@ class BundleFusion:
                 "T_world": torch.zeros((4, 4), dtype=torch.float32, device=dev),
                 "valid": torch.zeros((), dtype=torch.bool, device=dev),
                 "rows": torch.zeros((REINT_ROWS, 34), dtype=torch.float32, device=dev),
+                "local_world": torch.zeros((self.S, 4, 4), dtype=torch.float32, device=dev),
             }
             if dev.type == "cuda":
                 self._static.update(stream=torch.cuda.Stream(dev),
@@ -738,7 +752,8 @@ class BundleFusion:
         before = dict(kernels.launch_counts)
         self._capturing = True
         try:
-            with torch.cuda.graph(graph, pool=st["pool"], stream=side):
+            # the capture runs nothing: the solver's step counters skip it
+            with paused(), torch.cuda.graph(graph, pool=st["pool"], stream=side):
                 out = body()
         except Exception as exc:
             raise RuntimeError(f"capturing {what} failed: something in it waits for the card "
@@ -787,6 +802,69 @@ class BundleFusion:
             for k, n in launched.items():
                 kernels.launch_counts[k] += n
         return st["T_world"].clone(), st["valid"].clone()
+
+    # ------------------------------------------------------------------
+    # the boundary's local programs: the local solve, its dense verification
+    # and the keyframe fusion of ``_submap_local``, one graph each
+    def _local_body(self, name: str):
+        """Local program ``name`` on the window: ``"solve"``, the window's
+        bundle adjustment from its chained poses (:func:`solve_local`, which
+        reads nothing back and adds the steps it applied to
+        ``_local_gn_taken``), writes ``local_world`` [S, 4, 4] into its
+        static buffer and returns it; ``"verify"`` returns the adjacent
+        pairs checked and failed there; ``"fuse"`` returns the fused
+        keyframe (``fused``), the window's dense-cache row 0 (``cache_row``)
+        and ``pack_a`` [chained world S*16 | frame valid S]."""
+        st, loc = self._static_buffers(), self.local
+        if name == "solve":
+            dense = (loc.cache, self.intr_cache, self.dense_term_params) \
+                if self.bundling.use_local_dense else ()
+            poses = solve_local(matrix_to_pose(loc.rel), loc.valid, loc.corrs,
+                                self.local_solver, *dense, taken=self._local_gn_taken)
+            return st["local_world"].copy_(pose_to_matrix(poses))
+        if name == "verify":
+            return _verify_local_pairs(st["local_world"], loc.valid, loc.cache,
+                                       self.intr_cache, self.verify_params)
+        # fuse the keyframe from the solved submap's feature tracks (anchor
+        # frame 0; SIFTImageManager::fuseToGlobal)
+        fused = fuse_keyframe(loc.keys, loc.corrs, st["local_world"], 0, self.intr_sift,
+                              self.glob.keys.keys_per_frame)
+        # the keyframe store holds bfloat16 descriptors: the same cast the
+        # store's copy would make
+        fused["desc"] = fused["desc"].to(torch.bfloat16)
+        return {
+            "fused": fused,
+            # copies: the rollover writes the new window into slot 0
+            "cache_row": {n: getattr(loc.cache, n)[0].clone() for n in CACHE_FIELDS},
+            "pack_a": torch.cat([(self.submap_base @ loc.rel).reshape(-1),
+                                 loc.valid.to(torch.float32)]),
+        }
+
+    def _run_local(self, name: str):
+        """Local program ``name`` as a boundary runs it: on the card
+        replayed from its graph (captured first, behind one eager run, if it
+        has none), else eagerly. Returns its outputs: on a replay the
+        graph's own tensors, which the next boundary's replay rewrites."""
+        if not self._graphs_on():
+            return self._local_body(name)
+        from bundlefusion_tpu_torch import kernels
+
+        entry = self._local_graphs.get(name)
+        if entry is None:
+            self._static_buffers()   # the capture stream and pool
+            eager, graph, launched, out = self._capture(lambda: self._local_body(name),
+                                                        f"the local program {name!r}")
+            self._local_graphs[name] = (graph, launched, self._state_ptrs(), out)
+            return eager
+        graph, launched, ptrs, out = entry
+        if ptrs != self._state_ptrs():
+            raise RuntimeError("the window, the frame archive, the anchor pose or the voxel "
+                               "table was replaced after the local programs were captured: "
+                               "the engine updates them in place")
+        graph.replay()
+        for k, n in launched.items():
+            kernels.launch_counts[k] += n
+        return out
 
     # ------------------------------------------------------------------
     # the fusion programs: the TSDF dispatch's fast and rows paths and the
@@ -1247,47 +1325,36 @@ class BundleFusion:
         ``base`` (the window's anchor pose), ``last_world`` and ``pack_a``
         [chained world S*16 | frame valid S]."""
         b, log, loc = self.bundling, self.timing, self.local
-        S = self.S
+        lv = loc.valid
         with stage(log, "time_submap_local_solve"):
-            init = matrix_to_pose(loc.rel)
-            lv = loc.valid
-            if b.use_local_dense:
-                # sparse + dense depth term, dense weight ramp iter + 1
-                # (SBA.cpp:28-38)
-                poses, _ = solve_bundle(init, lv, loc.corrs, loc.cache, self.intr_cache,
-                                        self.local_solver, self.dense_term_params)
+            # sparse (+ dense depth term, dense weight ramp iter + 1,
+            # SBA.cpp:28-38); a replay enqueues every Gauss-Newton step, each
+            # an LU
+            if self._graphs_on() and "solve" in self._local_graphs:
+                n = self.local_solver.num_gn
+                count("local_graph_replays")
+                count("gn_steps", n)
+                count("lu_steps", n)
             else:
-                poses, _ = solve_sparse(init, lv, loc.corrs, self.local_solver)
-            local_world = pose_to_matrix(poses)
+                count("local_eager_solves")
+            local_world = self._run_local("solve")
 
         submap_ok = lv[0] & (lv.sum() >= 2)
         if b.use_local_verify:
             # a solved submap failing dense verification is invalid
             # (VerifyTrajectoryCU path, Bundler.cpp:259-273)
             with stage(log, "time_submap_verify"):
-                n_checked, n_failed = _verify_local_pairs(local_world, lv, loc.cache,
-                                                          self.intr_cache, self.verify_params)
+                n_checked, n_failed = self._run_local("verify")
                 submap_ok = submap_ok & ((n_checked == 0) | (n_failed <= n_checked // 3))
 
         with stage(log, "time_submap_fuse"):
-            # fuse the keyframe from the solved submap's feature tracks
-            # (anchor frame 0; SIFTImageManager::fuseToGlobal)
-            fused = fuse_keyframe(loc.keys, loc.corrs, local_world, 0, self.intr_sift,
-                                  self.glob.keys.keys_per_frame)
-            # the keyframe store holds bfloat16 descriptors: the same cast
-            # the store's copy would make
-            fused["desc"] = fused["desc"].to(torch.bfloat16)
             out = {
-                "fused": fused,
-                # copies: the rollover below writes the new window into slot 0
-                "cache_row": {n: getattr(loc.cache, n)[0].clone() for n in CACHE_FIELDS},
+                **self._run_local("fuse"),
                 "local_world": local_world,
                 "lv_out": lv & submap_ok,
                 "submap_ok": submap_ok,
                 "base": self.submap_base,
                 "last_world": self._as_pose(last_world),
-                "pack_a": torch.cat([(self.submap_base @ loc.rel).reshape(-1),
-                                     lv.to(torch.float32)]),
             }
             # rollover: the overlap frame becomes slot 0 of the fresh submap
             self._rollover_local()
@@ -1486,9 +1553,10 @@ class BundleFusion:
         boundary with its global branch, the revalidation match, the
         ``finish`` solves and the composition. What a timed run would
         otherwise pay at its first frame or boundary (kernel builds, library
-        handles, first-call set-up) is paid here. On the card it then
-        captures ``_frame_step`` once per window slot and the three fusion
-        programs once each (``_build_programs``).
+        handles, first-call set-up) is paid here. On the card the boundary
+        captures the local programs (their first use), and then
+        ``_frame_step`` is captured once per window slot and the three
+        fusion programs once each (``_build_programs``).
         A zero frame contributes no TSDF blocks, no correspondences and no
         keyframe validity; the window is reset in place and the keyframe
         graph replaced by a fresh one at the end, so the state is a fresh
@@ -1542,6 +1610,7 @@ class BundleFusion:
         self.timing.reset()
         self.boundary_stats.clear()
         self.reint_lags.clear()
+        self._local_gn_taken.zero_()
         self.last_render = None
         return time.perf_counter() - t0
 
@@ -1963,13 +2032,19 @@ class BundleFusion:
         read does."""
         log = self.timing
         if on and not log.tracing:
-            self._trace_from = (self._rows_swept.clone(), self.frame_idx)
+            self._trace_from = (self._device_counts(), self.frame_idx)
         elif not on and log.tracing and self._trace_from is not None:
-            rows0, frame0 = self._trace_from
-            rows = read_host(self._rows_swept - rows0, counted=False)[0]
-            self._trace_counts = {"frames": self.frame_idx - frame0, "tsdf_rows": int(rows)}
+            counts0, frame0 = self._trace_from
+            rows, taken = read_host(self._device_counts() - counts0, counted=False)
+            self._trace_counts = {"frames": self.frame_idx - frame0, "tsdf_rows": int(rows),
+                                  "local_gn_taken": int(taken)}
             self._trace_from = None
         log.trace(on, profiler_ranges)
+
+    def _device_counts(self) -> torch.Tensor:
+        """The counters kept on the device, in one new tensor: the TSDF rows
+        listed, the local Gauss-Newton steps applied."""
+        return torch.cat([self._rows_swept, self._local_gn_taken])
 
     def spans(self) -> List[dict]:
         """The span records closed since the last call (``utils.timing``),

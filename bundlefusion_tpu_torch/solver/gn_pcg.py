@@ -26,7 +26,11 @@ What differs from the JAX module is what eager PyTorch makes different:
   loop (one every ``PCG_CHECK_EVERY`` iterations; iterations past
   convergence are masked, so the result is the while loop's). The
   sort-or-identity choice above 65536 corrs is computed both ways under a
-  mask and reads nothing;
+  mask and reads nothing. A submap's solve (``solve_local``) keeps the
+  reference's masked Gauss-Newton loop instead: every step is enqueued,
+  which costs a window's solve little and lets it run as a CUDA graph,
+  where a masked step of the keyframe graph's solve would be one more
+  factorisation of the whole system;
 - segment sums run front to back over the sorted runs
   (``utils.segment_sum_sorted``), not as scatter-adds, so a solve on the
   card repeats bit for bit;
@@ -632,6 +636,25 @@ def _gauss_newton(poses, params: SolverParams, step):
     return poses
 
 
+def _gauss_newton_masked(poses, params: SolverParams, step, taken=None):
+    """:func:`_gauss_newton` with the early-out as a mask on the device, the
+    JAX reference's loop: all ``num_gn`` steps are enqueued, and once a
+    step's max |delta| is under the early-out every later step returns its
+    input. Nothing is read back, and the poses are those of the host
+    early-out bit for bit. ``taken`` (an int64 tensor) gains one for each
+    step whose update was applied; every step enqueued is one on
+    ``gn_steps``."""
+    done = torch.zeros((), dtype=torch.bool, device=poses.device)
+    for it in range(params.num_gn):
+        timing.count("gn_steps")
+        new, max_delta = step(poses, it)
+        if taken is not None:
+            taken += (~done).to(torch.int64)
+        poses = torch.where(done, poses, new)
+        done = done | (max_delta < params.gn_early_out_delta)
+    return poses
+
+
 def _pcg_step(poses, H, rhs, precond, matvec_extra, ps, free_f, n_pairs, params):
     """One PCG linear step on the pair blocks (+ an optional extra operator)."""
     timing.count("pcg_steps")
@@ -657,10 +680,21 @@ def solve_sparse_presorted(poses, pose_valid, prob: PresortedProblem, params: So
     / max-residual passes: callers in the pruning loop use
     ``max_residual_sorted``). The linear step is a direct dense reduced
     solve for moderate N, PCG otherwise (``SolverParams.linear``)."""
-    N = poses.shape[0]
+    return _gauss_newton(poses, params, _sparse_step(pose_valid, prob, params))
+
+
+def _free_mask(pose_valid):
+    """[N, 1] float mask of the poses a solve moves: valid, and not pose 0."""
+    free = pose_valid & (torch.arange(pose_valid.shape[0], device=pose_valid.device) != 0)
+    return free.to(torch.float32)[:, None]
+
+
+def _sparse_step(pose_valid, prob: PresortedProblem, params: SolverParams):
+    """The Gauss-Newton step ``step(poses, it) -> (poses, max |delta|)`` of
+    the sparse energy over a presorted problem."""
+    N = pose_valid.shape[0]
     w_sqrt = math.sqrt(params.sparse_weight)
-    free = pose_valid & (torch.arange(N, device=poses.device) != 0)
-    free_f = free.to(torch.float32)[:, None]
+    free_f = _free_mask(pose_valid)
     sc, ps = prob.sc, prob.ps
 
     if _use_dense(params, N):
@@ -679,7 +713,7 @@ def solve_sparse_presorted(poses, pose_valid, prob: PresortedProblem, params: So
                               ps, free_f, n_pairs, params)
             return p + delta * free_f, delta.abs().amax()
 
-    return _gauss_newton(poses, params, step)
+    return step
 
 
 def _sorted_prefix_residuals(poses, prob: PresortedProblem):
@@ -832,6 +866,36 @@ def solve_bundle(poses, pose_valid, corrs: CorrStore, cache, intr,
 
     Returns (poses, SolveStats).
     """
+    prob = presort_corrs(corrs, poses.shape[0], params)
+    c0 = cost(poses, corrs)
+    step = _bundle_step(pose_valid, prob, cache, intr, params, dense_params, dense_weights,
+                        w_color)
+    poses_out = _gauss_newton(poses, params, step)
+    return poses_out, _stats(poses_out, corrs, c0, params, prob.sc.dropped)
+
+
+def solve_local(poses, pose_valid, corrs: CorrStore, params: SolverParams, cache=None,
+                intr=None, dense_params=None, taken=None):
+    """A submap's bundle adjustment as its boundary runs it:
+    :func:`solve_bundle` (given the window's dense ``cache``) or
+    :func:`solve_sparse`, without their statistics, and with the
+    Gauss-Newton early-out as a mask on the device
+    (:func:`_gauss_newton_masked`; ``taken`` counts the steps applied). At
+    a window's size the linear step is the direct one, and then nothing here
+    reads the card back: the solve can be captured as a CUDA graph. Returns
+    the poses, bit for bit those of the host early-out."""
+    prob = presort_corrs(corrs, poses.shape[0], params)
+    if cache is None:
+        step = _sparse_step(pose_valid, prob, params)
+    else:
+        step = _bundle_step(pose_valid, prob, cache, intr, params, dense_params)
+    return _gauss_newton_masked(poses, params, step, taken)
+
+
+def _bundle_step(pose_valid, prob: PresortedProblem, cache, intr, params: SolverParams,
+                 dense_params=None, dense_weights=None, w_color: float = 0.0):
+    """The Gauss-Newton step ``step(poses, it) -> (poses, max |delta|)`` of
+    the sparse + dense energy (:func:`solve_bundle`'s arguments)."""
     from bundlefusion_tpu_torch.solver.dense_term import (
         DenseTermParams,
         build_dense_system,
@@ -843,17 +907,13 @@ def solve_bundle(poses, pose_valid, corrs: CorrStore, cache, intr,
     )
 
     dp = dense_params or DenseTermParams()
-    N = poses.shape[0]
+    N = pose_valid.shape[0]
     if dense_weights is None:
         dense_weights = [float(i) for i in range(1, params.num_gn + 1)]
     dense_weights = [float(w) for w in dense_weights]
     w_sqrt = math.sqrt(params.sparse_weight)
-
-    free = pose_valid & (torch.arange(N, device=poses.device) != 0)
-    free_f = free.to(torch.float32)[:, None]
-    prob = presort_corrs(corrs, N, params)
+    free_f = _free_mask(pose_valid)
     sc, ps = prob.sc, prob.ps
-    c0 = cost(poses, corrs)
     use_dense_lin = _use_dense(params, N)
     n_pairs = None
     if not use_dense_lin and _pair_chunk(ps.seg_i.shape[0]) is not None:
@@ -879,5 +939,4 @@ def solve_bundle(poses, pose_valid, corrs: CorrStore, cache, intr,
             )
         return p + delta * free_f, delta.abs().amax()
 
-    poses_out = _gauss_newton(poses, params, step)
-    return poses_out, _stats(poses_out, corrs, c0, params, sc.dropped)
+    return step

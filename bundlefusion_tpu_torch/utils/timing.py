@@ -34,7 +34,7 @@ from __future__ import annotations
 import statistics
 import time
 from collections import defaultdict
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, List, Optional
 
 PROFILER_PREFIX = "bf."   # the profiler ranges' names: bf.<span name>
@@ -55,6 +55,18 @@ def count(name: str, n: int = 1) -> None:
     if log is not None and log._open:
         c = log._open[-1].counters
         c[name] = c.get(name, 0) + n
+
+
+@contextmanager
+def paused():
+    """No log is active inside, so counts and waits go nowhere: a CUDA
+    graph's capture records work that it does not run."""
+    global _active
+    log, _active = _active, None
+    try:
+        yield
+    finally:
+        _active = log
 
 
 def waited(ns: int, what: str = "reads") -> None:

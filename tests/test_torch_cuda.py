@@ -46,7 +46,10 @@ render after every frame, re-integration frames among them), with the same
 kernel launches, and the same TSDF rows counter after every frame, which
 grows by the rows the eager run's culls listed. Frames that are not
 boundaries, fast and re-integration ones, run through ``process_frame``
-under ``set_sync_debug_mode("error")``, with the span records off and on.
+under ``set_sync_debug_mode("error")``, with the span records off and on,
+and so does a boundary's local phase, its local solve, verification and
+keyframe fusion replayed from their graphs: the same bits as their eager
+runs, the solve's also as the host early-out's.
 The TSDF kernels read their op table from device memory and equal the plain
 versions bit for bit there, an op whose image index is out of range skipped.
 
@@ -994,6 +997,73 @@ def test_fusion_rows_counter_equals_eager_and_the_culls_rows(graph_and_eager_run
     assert g[6] == e[6]
     assert e[6][-1] - e[6][0] == e[7] > 0
     assert all(b >= a for a, b in zip(e[6], e[6][1:]))
+
+
+def _flat(out):
+    """A local program's outputs as a flat list of host tensors."""
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out.cpu()]
+
+
+def test_local_programs_replay_equal_eager_and_wait_for_nothing(setup):
+    """A window of 11 real frames (windows of 10) with the programs captured
+    (``warmup``): the first boundary (g = 0: the local phase, the keyframe
+    insert, the pack) runs under ``set_sync_debug_mode("error")`` up to its
+    pack's read, replaying the local solve's, the verification's and the
+    keyframe fusion's graphs. Its ``local_world`` is the bits of the same
+    window solved eagerly (``_local_body``, the early-out a mask) and by
+    ``solve_bundle`` (the early-out a host read); the verification's counts
+    and the fused keyframe are the eager run's bits; and the device's count
+    of the steps applied grows by the steps that the host loop ran, on the
+    replay as on the eager run."""
+    from bundlefusion_tpu_torch.geometry.lie import matrix_to_pose, pose_to_matrix
+    from bundlefusion_tpu_torch.io.synthetic import make_sequence_wire
+    from bundlefusion_tpu_torch.solver.gn_pcg import solve_bundle
+    from bundlefusion_tpu_torch.utils import timing
+
+    seq = make_sequence_wire(11, intr=default_intrinsics(160, 120))
+    eng = _small_engine("cuda", submap_size=10)
+    eng.warmup()
+    assert set(eng._local_graphs) == {"solve", "verify", "fuse"}
+    assert int(eng._local_gn_taken) == 0
+    for f in range(10):
+        eng.process_frame(eng.upload_frame(seq["depth"][f], seq["color"][f]))
+    # frame 10 into the window's last slot, without its boundary
+    T, _ = eng._run_frame_step(*eng.upload_frame(seq["depth"][10], seq["color"][10]), 10,
+                               eng._store_slot(10))
+    assert bool(eng.local.valid.all())
+    loc, log = eng.local, timing.TimingLog()
+    log.trace(True)
+    try:
+        with log.span("host"):
+            host, _ = solve_bundle(matrix_to_pose(loc.rel), loc.valid, loc.corrs, loc.cache,
+                                   eng.intr_cache, eng.local_solver, eng.dense_term_params)
+    finally:
+        log.trace(False)
+    steps = log.spans()[-1]["counters"]["gn_steps"]
+    eager = {name: _flat(eng._local_body(name)) for name in ("solve", "verify", "fuse")}
+    taken = int(eng._local_gn_taken)
+    assert taken == steps
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pack = eng._submap_step(0, T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pack = pack.cpu()
+    assert int(eng._local_gn_taken) == taken + steps
+    replayed = eng._static["local_world"]
+    assert torch.equal(_bits(replayed), _bits(pose_to_matrix(host)))
+    assert torch.equal(_bits(eng.glob.local_traj[0]), _bits(replayed))
+    for name, want in eager.items():
+        got = _flat(eng._local_graphs[name][-1])
+        assert len(got) == len(want) > 0, name
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b)), name
+    assert pack[eng._off_flags] == 1.0 and torch.isfinite(pack[:eng._off_lv]).all()
 
 
 def _ordinary_frames_under_sync_error(traced):

@@ -409,3 +409,88 @@ def test_pair_overflow_accounted():
     _, jst = jgn.solve_sparse(jnp.asarray(gt), jnp.ones((64,), bool), store, jp)
     _, tst = tgn.solve_sparse(t(gt), torch.ones(64, dtype=torch.bool), port_corrs(store), tp)
     assert int(tst.num_pairs_dropped) == int(jst.num_pairs_dropped) > 0
+
+
+WINDOW = 11   # a submap window at the engine's defaults (10 frames + the overlap frame)
+
+
+@pytest.fixture(scope="module")
+def local_window():
+    """An 11-frame window as a boundary solves it: 40x30 frames rendered
+    along a short path (1.5 cm and 0.01 rad apart) in the dense cache, and
+    16 corrs per pair between frames up to two apart in the store."""
+    from bundlefusion_tpu.solver.dense_term import DenseTermParams as JDenseParams
+    from bundlefusion_tpu_torch.solver.dense_term import DenseTermParams as TDenseParams
+    from tests.test_dense_term import INTR, make_cache
+    from tests.torch_parity import port_cache, port_intr
+
+    rng = np.random.default_rng(11)
+    gt_poses = np.zeros((WINDOW, 6), np.float32)
+    gt_poses[:, 1] = 0.01 * np.arange(WINDOW)
+    gt_poses[:, 3] = 0.015 * np.arange(WINDOW)
+    gt = [to_np(pose_to_matrix(jnp.asarray(p))) for p in gt_poses]
+    store = jres.create_corr_store(2048)
+    for i in range(WINDOW):
+        for j in range(max(0, i - 2), i):
+            world = rng.uniform(-0.5, 0.5, (16, 3)).astype(np.float32) + [0, 0, 2]
+            p_i, p_j = (world @ np.linalg.inv(T)[:3, :3].T + np.linalg.inv(T)[:3, 3]
+                        for T in (gt[i], gt[j]))
+            store = jres.append_corrs(store, jnp.full((16,), i, jnp.int32),
+                                      jnp.full((16,), j, jnp.int32),
+                                      jnp.asarray(p_i, jnp.float32),
+                                      jnp.asarray(p_j, jnp.float32), jnp.ones(16, bool))
+    cache = make_cache(gt)
+    kw = dict(overlap_min_hits=5, min_corr_per_pair=100, depth_min=0.2, max_pairs=64)
+    return {"gt": gt_poses, "store": store, "cache": cache, "intr": INTR,
+            "tstore": port_corrs(store), "tcache": port_cache(cache),
+            "tintr": port_intr(INTR), "jdp": JDenseParams(**kw), "tdp": TDenseParams(**kw)}
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["sparse_dense", "sparse"])
+@pytest.mark.parametrize("noise,steps", [(1e-4, 1), (0.02, 2)],
+                         ids=["early_out_after_step_1", "both_steps"])
+def test_masked_local_solve_equals_host_early_out(local_window, dense, noise, steps):
+    """The boundary's local solve (``solve_local``: both Gauss-Newton steps
+    enqueued, the early-out a mask on the device) gives the poses of the
+    host early-out (``solve_bundle`` / ``solve_sparse``) bit for bit, with
+    ``taken`` counting the steps the host loop ran, and the JAX reference's
+    masked loop's poses within ``POSE_ATOL``."""
+    from bundlefusion_tpu_torch.utils import timing
+
+    w = local_window
+    rng = np.random.default_rng(int(noise * 1e4))
+    init = w["gt"].copy()
+    init[1:] += rng.normal(size=(WINDOW - 1, 6)).astype(np.float32) * noise
+    valid = np.ones(WINDOW, bool)
+    jp, tp = _params("auto", num_gn=2, max_pairs=WINDOW * (WINDOW + 1) // 2 + 1)
+    if dense:
+        jout, _ = jgn.solve_bundle(jnp.asarray(init), jnp.asarray(valid), w["store"], w["cache"],
+                                   w["intr"], jp, w["jdp"])
+        tdense = (w["tcache"], w["tintr"], w["tdp"])
+    else:
+        jout, _ = jgn.solve_sparse(jnp.asarray(init), jnp.asarray(valid), w["store"], jp)
+        tdense = ()
+    log = timing.TimingLog()
+    log.trace(True)
+    try:
+        with log.span("host"):
+            if dense:
+                host, _ = tgn.solve_bundle(t(init), t(valid), w["tstore"], *tdense[:2], tp,
+                                           tdense[2])
+            else:
+                host, _ = tgn.solve_sparse(t(init), t(valid), w["tstore"], tp)
+        reads0 = host_reads["count"]
+        taken = torch.zeros((1,), dtype=torch.int64)
+        with log.span("masked"):
+            masked = tgn.solve_local(t(init), t(valid), w["tstore"], tp, *tdense, taken=taken)
+        reads = host_reads["count"] - reads0
+    finally:
+        log.trace(False)
+    by_name = {s["name"]: s["counters"] for s in log.spans()}
+    assert by_name["host"]["gn_steps"] == steps == int(taken)
+    assert by_name["masked"]["gn_steps"] == by_name["masked"]["lu_steps"] == 2
+    assert reads == 0
+    assert torch.equal(masked.view(torch.int32), host.view(torch.int32))
+    np.testing.assert_allclose(masked.numpy(), to_np(jout), atol=POSE_ATOL)
+    if steps == 2:   # from 2 cm off, the solve moves towards the path
+        assert np.abs(masked.numpy() - w["gt"]).max() < np.abs(init - w["gt"]).max()

@@ -329,3 +329,24 @@ def test_fusion_programs_call_nothing_that_waits_for_the_card(seq):
         out = eng._render(eng.table, T)
     assert finder.ops > 500 and finder.found == []
     assert torch.isfinite(out["depth"]).any()
+
+
+def test_local_programs_call_nothing_that_waits_for_the_card(seq):
+    """The boundary's local programs (``_local_body``: the solve, the dense
+    verification, the keyframe fusion; the card captures each as one graph)
+    on a window of four frames, under the dispatch mode: nothing that
+    waits, and the window's state untouched."""
+    eng = _engine()
+    for f in range(4):
+        eng._frame_step(seq["depth"][f], seq["color"][f], f, f)
+    before = {k: t.clone() for k, t in frame_state(eng).items()}
+    for name in ("solve", "verify", "fuse"):
+        finder = _WaitFinder()
+        with finder:
+            out = eng._local_body(name)
+        assert finder.ops > 100 and finder.found == [], name
+    assert torch.isfinite(eng._static["local_world"]).all() and int(eng._local_gn_taken) >= 1
+    assert bool(out["fused"]["valid"].any())
+    for k, t in frame_state(eng).items():
+        assert torch.equal(t.nan_to_num(7.0) if t.is_floating_point() else t,
+                           before[k].nan_to_num(7.0) if t.is_floating_point() else before[k]), k

@@ -9,7 +9,8 @@ rows counter counts). Tracing must change nothing the engine computes or
 reads: the same poses bit for bit and the same counted host reads. Each
 boundary's span holds exactly the reads ``boundary_stats`` counts for it,
 its Gauss-Newton steps lie within the solver's cap, the rows counter equals
-the rows the cull listed, and with profiler ranges on the spans appear in a
+the rows the cull listed, the local solve counts its eager run and its
+steps, and with profiler ranges on the spans appear in a
 ``torch.profiler`` run as ``bf.<name>``. A traced solve counts its steps by
 linear kind, LU or PCG, and the PCG iterations it enqueued.
 """
@@ -144,6 +145,24 @@ def test_rows_counter_and_staleness(runs):
     assert counts["reintegrated"] == len(on["eng"].reint_lags) > 0
     assert counts["lag_frames_max"] >= counts["lag_frames_mean"] >= 1
     assert counts["backlog"] >= 0
+
+
+def test_local_solve_counts_its_path_and_its_steps(runs):
+    """On the CPU every boundary's local solve runs eagerly (one
+    ``local_eager_solves``, no replay) and enqueues all its Gauss-Newton
+    steps, each an LU, reading nothing back; ``local_gn_taken``, counted on
+    the device, holds the steps whose update was applied, one or two a
+    boundary, traced or not."""
+    on, off = runs
+    eng = on["eng"]
+    n = eng.local_solver.num_gn
+    local = [s for s in on["spans"] if s["name"] == "time_submap_local_solve"]
+    assert len(local) == len(eng.boundary_stats) == 3
+    for s in local:
+        assert s["counters_incl"] == {"local_eager_solves": 1, "gn_steps": n, "lu_steps": n}
+    taken = eng.counters()["local_gn_taken"]
+    assert len(local) <= taken <= n * len(local)
+    assert int(off["eng"]._local_gn_taken) == int(eng._local_gn_taken) == taken
 
 
 def test_profiler_ranges_name_the_spans(runs):
