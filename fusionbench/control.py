@@ -77,9 +77,9 @@ def surface_voxels(depths: list, poses: np.ndarray, cam: dict, tsdf: dict, n: in
 
 
 def program_place(frames: dict, idx: np.ndarray, config: dict, seed: int, n_samples: int,
-                  device, breaks: str = "tracking", lag: int = 20) -> dict:
+                  device, breaks: str = "tracking", lag: int = 20, scene=None) -> dict:
     """The outputs that the reference gives in the program's place with the
-    guarantee ``breaks`` broken."""
+    guarantee ``breaks`` broken, in the traffic's ``scene``."""
     truth = np.asarray(frames["poses"], np.float64)[idx]
     rel = reference.relative_poses(truth)
     cam = reference.integration_camera(config["camera"], *config["integration_size"])
@@ -100,7 +100,7 @@ def program_place(frames: dict, idx: np.ndarray, config: dict, seed: int, n_samp
             f.add(depths[k], cam, stale[k])
     sdf, w = f.result()
     seen = w > 0
-    render = reference.render_depth(cam, truth[0] @ render_pose, device)
+    render = reference.render_depth(cam, truth[0] @ render_pose, device, scene)
     return {"trajectory": reported, "scan_index": idx,
             "map": {"points": pts[seen].cpu().numpy(), "sdf": sdf[seen].cpu().numpy(),
                     "weight": w[seen].cpu().numpy()},
@@ -123,13 +123,16 @@ def control_runs(name: str, seed: int, frames_fed: int | None, device, breaks=("
     n_render = frames_fed if traffic["loop"] == "open" else traffic["scan"]["frames"]
     frames = scan.make_scan(traffic, config["camera"], seed, n_render, device)
     idx = np.arange(frames_fed) % n_render
+    scene = traffic["scan"].get("scene")
     out = []
     for b in breaks:
-        outputs = program_place(frames, idx, config, seed, limits["map_samples"], device, b, lag)
-        numbers = check.compare(outputs, frames, config, device)
+        outputs = program_place(frames, idx, config, seed, limits["map_samples"], device, b, lag,
+                                scene)
+        numbers = check.compare(outputs, frames, config, device, scene)
         correct, checks = check.verdict(numbers, limits)
         out.append({"workload": name, "seed": seed, "breaks": b, "lag": lag,
                     "frames": frames_fed, "correct": correct, "numbers": numbers,
+                    "limits": {k: c["limit"] for k, c in checks.items()},
                     "fails": [k for k, c in checks.items()
                               if not (math.isfinite(c["value"]) and c["value"] <= c["limit"])]})
     return out

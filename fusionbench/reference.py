@@ -15,7 +15,7 @@ should be:
   valid sample with ``sdf > -truncation`` adds weight 1 and its sdf clamped
   to the truncation, which grows with depth;
 - the render: the scene's depth from the frame's true pose, traced from the
-  analytic scene.
+  analytic scene that the traffic names (``scan.make_scene``).
 
 Everything is accumulated in float64 on the device it is given.
 """
@@ -138,8 +138,10 @@ class Fusion:
         return torch.where(w > 0, self.sum / torch.clamp(w, min=1.0), 0.0), w
 
 
-def render_depth(camera_int: dict, cam_to_world: np.ndarray, device) -> np.ndarray:
-    """The scene's depth [h, w] (metres, nan where nothing is hit) from
-    ``cam_to_world`` in the scene's frame, at the integration camera."""
-    d, _ = scan.render(scan.Scene(device), camera_int, np.asarray(cam_to_world)[None])
+def render_depth(camera_int: dict, cam_to_world: np.ndarray, device, scene=None) -> np.ndarray:
+    """The depth [h, w] (metres, nan where nothing is hit) of the scene that
+    the traffic's ``scan.scene`` names (``scene``; None for the one room)
+    from ``cam_to_world`` in the scene's frame, at the integration camera."""
+    d, _ = scan.render(scan.make_scene(scene, device), camera_int,
+                       np.asarray(cam_to_world)[None])
     return d[0].cpu().numpy()

@@ -20,7 +20,8 @@ standard error and the result's last key.
 
 With ``--trace 0`` the metrics are the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, read from two profiler stretches inside
-the window (``trace.py``), the replay and the benchmark's own spans.
+the window (``trace.py``), the replay, the benchmark's own spans and the
+program's span records and counters over the window (``rec["program"]``).
 
 The run refuses (exit 2, no result) without a CUDA card or with fewer cards
 than the cell asks for, and (exit 3) when a module of JAX or of the JAX
@@ -225,14 +226,21 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start:
     def on_frame(k: int) -> None:
         for key, (st, first, count) in plan.items():
             if k == first:
+                if key == "gaps":   # the program's spans as profiler ranges here alone
+                    sut.trace(True, profiler_ranges=True)
                 st.start()
                 open_[key] = st
             elif k == first + count and key in open_:
                 st.frames = count
                 st.stop(sut.sync)
                 stretches[key] = open_.pop(key)
+                if key == "gaps":
+                    sut.trace(True)
 
     reint0 = sut.reint_frames
+    kf_open = sut.keyframes
+    if trace:
+        sut.trace(True)
     comp = window.Completions()
     first = warm
     if traffic["loop"] == "open":
@@ -252,9 +260,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start:
         st.stop(sut.sync)
         stretches[key] = st
     sut.sync()
+    program = None
+    if trace:
+        sut.trace(False)
+        program = sut.program()
     reint_share = (sut.reint_frames - reint0) / max(offered, 1)
     bounds = [sut.is_boundary(first + k) for k in range(offered)]
-    state = sut.state()
+    state = {"keyframes_at_open": kf_open, **sut.state(since=kf_open)}
     log(f"fusionbench: window closed: {offered} frames offered, "
         f"{offered - win['not_completed']} completed; {host_calls(res['spans'], bounds)}; "
         + (f"latency p50 {win['frame_ms_p50']:.3f} ms, p95 {win['frame_ms_p95']:.3f} ms; "
@@ -301,7 +313,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start:
     outputs = {"trajectory": traj, "scan_index": idx, "map": map_sample,
                "render": {"depth": render, "pose": render_pose}}
     t = time.perf_counter()
-    numbers = check.compare(outputs, frames, config, dev)
+    numbers = check.compare(outputs, frames, config, dev, traffic["scan"].get("scene"))
+    if traffic["scan"]["trajectory"] == "walk":
+        numbers["leg_gap_cm"] = check.leg_gap_cm(traj, truth_rel, idx, traffic["scan"]["frames"])
     correct, checks = check.verdict(numbers, limits)
     log(f"fusionbench: reference compared in {time.perf_counter() - t:.3f} s "
         f"({numbers['map_compared']} voxels of {numbers['map_samples']} sampled)")
@@ -310,6 +324,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start:
            "boundary": bounds, "reint_share": reint_share, "replay": replay, "state": state,
            "profile": {k: tr.device_summary(v) for k, v in stretches.items()},
            "loop": traffic["loop"]}
+    if trace:
+        rec["program"] = program
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in spec[kind]:
@@ -330,7 +346,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, t_start:
                         for k, c in checks.items()}
     log("fusionbench: readings not compared: " + ", ".join(
         f"{k} {numbers[k]}" for k in ("pose_err_max_cm", "map_sdf_p50_mm", "map_sdf_p95_mm",
-                                      "map_unseen_share") if k in numbers))
+                                      "map_unseen_share", "leg_gap_cm") + check.NUMBERS
+        if k in numbers and k not in checks))
     for k, c in checks.items():
         log(f"check {k} {c['value']} limit {c['limit']}")
     return result

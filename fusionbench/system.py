@@ -7,7 +7,8 @@ decoded scan), marks each frame's completion on the device, and, once the
 window has closed, reads the outputs that ``check.py`` judges: the
 trajectory after ``finish``, a seeded sample of the map's voxels and the
 last per-frame render. The spans and counters that the per-layer readers
-take (``device_timing``, ``timing``, ``reint_frames``) are the engine's own.
+take (``device_timing``, ``timing``, ``reint_frames``; with ``trace`` on,
+the span records and counters of ``program``) are the engine's own.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 BLOCK = 8   # voxels per block side, the map's layout
+CROSS_GAP = 100   # keyframes apart (1000 frames at submaps of 10): a loop closure
 
 
 class Done:
@@ -81,13 +83,47 @@ class System:
     def reint_frames(self) -> int:
         return self.eng.reint_frames
 
-    def state(self) -> dict:
+    @property
+    def keyframes(self) -> int:
+        """Keyframes in the keyframe graph so far (a host count)."""
+        return int(self.eng.num_keyframes)
+
+    def state(self, since: int = 0) -> dict:
         """How far the run filled the engine's state: keyframes and live
-        blocks of the map, against their capacities."""
-        t = self.eng.table
+        blocks of the map, against their capacities; the global
+        correspondence store's rows against its capacity, and the pairs the
+        global solves dropped so far; and the loop closures the store holds:
+        keyframe pairs more than ``CROSS_GAP`` keyframes apart with a
+        correspondence that no pruning invalidated (``cross_pairs``), and of
+        them those whose newer keyframe is ``since`` or later
+        (``cross_pairs_since``). Reads the device."""
+        t, corrs = self.eng.table, self.eng.glob.corrs
+        n = int(corrs.count)
+        i, j = corrs.img_i[:n].long(), corrs.img_j[:n].long()
+        far = (i >= 0) & (j >= 0) & ((i - j).abs() > CROSS_GAP)
+        pairs = torch.unique(torch.maximum(i, j)[far] * self.eng.G + torch.minimum(i, j)[far])
+        newer = pairs // self.eng.G
         return {"keyframes": int(self.eng.num_keyframes), "keyframe_capacity": int(self.eng.G),
                 "live_blocks": int((t.slot_geo[:, 3] > 0.5).sum()),
-                "block_capacity": int(t.slot_geo.shape[0] - 1)}
+                "block_capacity": int(t.slot_geo.shape[0] - 1),
+                "global_corr_rows": n, "global_corr_capacity": int(corrs.capacity),
+                "pairs_dropped": int(self.eng.pairs_dropped_total),
+                "cross_pairs": int(newer.numel()), "cross_pairs_since": int((newer >= since).sum())}
+
+    def trace(self, on: bool, profiler_ranges: bool = False) -> None:
+        """Start or stop the engine's span records (``eng.trace``; with
+        ``profiler_ranges``, each span also a ``bf.<name>`` profiler range).
+        Nothing for an engine that keeps no spans."""
+        if hasattr(self.eng, "spans"):
+            self.eng.trace(on, profiler_ranges)
+
+    def program(self):
+        """The engine's span records closed since the last call and its
+        counters (``eng.spans()``, ``eng.counters()``: read after ``trace``
+        is turned off); None for an engine that keeps no spans."""
+        if not hasattr(self.eng, "spans"):
+            return None
+        return {"spans": self.eng.spans(), "counters": self.eng.counters()}
 
     def replay(self, on: bool) -> None:
         """Turn the engine's serialized device-time replay on or off."""

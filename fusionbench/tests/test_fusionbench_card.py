@@ -31,8 +31,9 @@ def test_a_short_run_is_correct(card, cell):
 def test_the_control_is_not_correct(card, cell):
     from fusionbench import control
 
-    # an open loop feeds a fixed count; a closed loop about what 30 s take
-    closed = run.cell_spec(cell)["traffic"]["loop"] == "closed"
-    for out in control.control_runs(cell, 31415926535, 1100 if closed else None, card,
-                                    control.BREAKS):
+    # an open loop feeds a fixed count; a closed loop its untimed frames and
+    # about what 30 s take
+    traffic = run.cell_spec(cell)["traffic"]
+    frames = max(1100, traffic["warm_frames"] + 700) if traffic["loop"] == "closed" else None
+    for out in control.control_runs(cell, 31415926535, frames, card, control.BREAKS):
         assert not out["correct"], (out["breaks"], out["numbers"])

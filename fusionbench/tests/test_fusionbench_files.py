@@ -29,7 +29,12 @@ def test_cell_loads(cell):
     spec = run.cell_spec(cell)
     assert spec["workload"]["chips"] in (1, 4)
     assert spec["traffic"]["loop"] in ("open", "closed")
-    for k in ("pose_err_rms_cm", "map_weight_gap", "render_depth_p50_mm", "map_samples"):
+    # each guarantee has a number compared: tracking and the map at the
+    # reported poses one of their two each
+    tracking = [k for k in ("pose_err_rms_cm", "pose_ate_cm") if k in spec["limits"]]
+    at_pose = [k for k in ("map_sdf_off_pct", "map_sdf_far_pct") if k in spec["limits"]]
+    assert len(tracking) == 1 and len(at_pose) == 1
+    for k in tracking + at_pose + ["map_weight_gap", "render_depth_p50_mm", "map_samples"]:
         assert spec["limits"][k] > 0
     kinds = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in kinds and len(kinds) >= 2

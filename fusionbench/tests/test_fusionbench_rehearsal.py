@@ -1,6 +1,8 @@
 """A small CPU rehearsal of whole runs through the harness (the look for a
-card skipped): the result's last line has exactly the contract's keys, and
-with the timed path broken underneath, ``correct`` comes out false."""
+card skipped): the result's last line has exactly the contract's keys, a
+traced run's record holds the program's spans and counters (an untraced
+one none), and with the timed path broken underneath, ``correct`` comes out
+false."""
 
 import json
 import time
@@ -16,9 +18,32 @@ torch.set_num_threads(2)
 RESULT_KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 
 
+RECORDS = {}   # id(result) -> the run record ``rec`` its metrics were read from
+
+
 def _run(cell, seed=101, seconds=2.0, trace=False, system_cls=None, **traffic):
-    return run.run_cell(cell, seed, seconds, trace, "cpu", time.perf_counter(),
-                        overrides=small(cell, **traffic), system_cls=system_cls)
+    seen = {}
+    load = run.load_reader
+
+    def recording(metric):
+        reader = load(metric)
+
+        class Reader:
+            @staticmethod
+            def read(rec):
+                seen["rec"] = rec
+                return reader.read(rec)
+
+        return Reader
+
+    run.load_reader = recording
+    try:
+        res = run.run_cell(cell, seed, seconds, trace, "cpu", time.perf_counter(),
+                           overrides=small(cell, **traffic), system_cls=system_cls)
+    finally:
+        run.load_reader = load
+    RECORDS[id(res)] = seen.get("rec")
+    return res
 
 
 @pytest.fixture(scope="module")
@@ -51,9 +76,16 @@ def test_open_loop_rehearsal_offers_every_due_frame():
 
 def test_traced_live_run_reports_per_layer_metrics():
     res = _run("default.live", trace=True)
+    # all but the graph launches, which the CPU does not replay
     assert set(res["metrics"]) == {"host_frame_ms.live", "boundary_ms.live", "solve_ms.live",
-                                   "frame_step_dev_ms.live"}
+                                   "frame_step_dev_ms.live", "boundary_span_ms.live",
+                                   "boundary_wait_ms.live", "gn_steps.live",
+                                   "local_graph_replays.live", "local_gn_taken.live",
+                                   "frame_sched_ms.live"}
     assert res["correct"], res["checks"]
+    program = RECORDS[id(res)]["program"]
+    assert {"boundary", "reint_schedule", "process_frame"} <= {s["name"] for s in program["spans"]}
+    assert res["metrics"]["local_graph_replays.live"]["value"] == 0   # eager on the CPU
 
 
 def test_traced_offline_run_reports_per_layer_metrics():
@@ -63,8 +95,33 @@ def test_traced_offline_run_reports_per_layer_metrics():
     names = set(res["metrics"])
     # the device's own readings need a card; the rest are read on the CPU too
     assert {"host_frame_ms.offline", "boundary_ms.offline", "solve_ms.offline",
-            "frame_step_dev_ms.offline", "fusion_dev_ms.offline"} <= names
+            "frame_step_dev_ms.offline", "fusion_dev_ms.offline", "boundary_span_ms.offline",
+            "boundary_wait_ms.offline", "gn_steps.offline", "frame_sched_ms.offline"} <= names
     assert res["correct"], res["checks"]
+
+
+def test_untraced_run_keeps_no_program_record(offline):
+    assert "program" not in RECORDS[id(offline)]
+
+
+def test_traced_long_run_reports_its_per_layer_metrics():
+    # the short walk through four small rooms, the window opening on the
+    # boundary of the second keyframe (the first global match); the
+    # device's idle share needs a card
+    res = _run("default.long", trace=True, warm_frames=8)
+    assert res["correct"], res["checks"]
+    # and the graph launches, which the CPU does not replay, and the TSDF
+    # rows, which its full sweep does not count
+    assert set(res["metrics"]) == {"host_frame_ms.long", "boundary_ms.long", "solve_ms.long",
+                                   "global_match_ms.long", "frame_sched_ms.long",
+                                   "frame_step_dev_ms.long", "fusion_dev_ms.long",
+                                   "boundary_span_ms.long", "boundary_wait_ms.long",
+                                   "gn_steps.long", "local_graph_replays.long",
+                                   "local_gn_taken.long"}
+    rec = RECORDS[id(res)]
+    assert rec["program"]["spans"] and {"frames", "tsdf_rows"} <= set(rec["program"]["counters"])
+    assert {"global_corr_rows", "pairs_dropped", "keyframes_at_open", "cross_pairs",
+            "cross_pairs_since"} <= set(rec["state"])
 
 
 class Unchanged(system.System):
